@@ -2,10 +2,13 @@
 """Where the port's main path spends its time on one NVIDIA GPU.
 
     python3 profile_port.py [--frames 24] [--seed 0]
+    python3 profile_port.py --frontend learned --semantics model
 
 Renders the synthetic sequence at 640x480, then runs the port's frontend
-(16-frame chunks) and its SLAM loop once untraced (warm-up and wall
-times) and once under ``torch.profiler``. Prints the card's name and
+(ORB in 16-frame chunks, or the learned ViT-S/16 frontend of
+``--train-config`` in 8-frame chunks, with seeded weights, after the
+segmenter with ``--semantics model``) and its SLAM loop once untraced
+(warm-up and wall times) and once under ``torch.profiler``. Prints the card's name and
 power limit, the wall time of each stage, the device's busy time (the
 union of its kernel intervals) and idle share over the traced window,
 and the operators with the most device and host time. Needs CUDA.
@@ -45,13 +48,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--frames", type=int, default=24)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--frontend", choices=("orb", "learned"), default="orb")
+    parser.add_argument("--semantics", choices=("off", "model"), default="off")
+    parser.add_argument("--train-config", default="configs/train_vits_synthetic_long.yaml")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from semantic_slam_master_tpu_torch.cli.run_slam_cli import features_for_frames, render
+    from semantic_slam_master_tpu_torch.cli import run_slam_cli as cli
     from semantic_slam_master_tpu_torch.data import synthetic
     from semantic_slam_master_tpu_torch.slam import system
 
@@ -62,12 +68,22 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda")
     seq = synthetic.make_sequence(num_frames=args.frames, scale=1.0)
-    gray, depth = render(seq)
+    rgb, gray, depth, _ = cli.render_all(seq)
     cfg = system.SlamConfig()
+    load_args = argparse.Namespace(seed=args.seed, train_config=args.train_config, checkpoint=None,
+                                   segmenter_checkpoint=None)
+    segmenter = cli.load_segmenter(load_args, dev) if args.semantics == "model" else None
+    model = cli.load_learned_frontend(load_args, dev) if args.frontend == "learned" else None
+
+    def frontend():
+        wmap = cli.semantic_weight_maps(rgb, None, args.semantics, dev, segmenter)
+        if model is not None:
+            return cli.learned_features_for_frames(model, rgb, depth, dev, weight_map=wmap)
+        return cli.features_for_frames(gray, depth, 512, dev, weight_map=wmap)
 
     def stages():
         t0 = time.perf_counter()
-        feats = features_for_frames(gray, depth, 512, dev)
+        feats = frontend()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = system.run_slam(torch.Generator().manual_seed(args.seed), feats, seq.cam, cfg)
@@ -77,12 +93,12 @@ def main() -> int:
 
     stages()  # warm-up: kernel build, cuBLAS/cuSOLVER handles, allocator
     fe_ms, be_ms, kfs = stages()
-    print(f"untraced: frames={args.frames} frontend_ms={fe_ms:.1f} backend_ms={be_ms:.1f} "
+    print(f"untraced: frontend={args.frontend} semantics={args.semantics} frames={args.frames} frontend_ms={fe_ms:.1f} backend_ms={be_ms:.1f} "
           f"backend_ms_per_frame={be_ms / (args.frames - 1):.2f} keyframes={kfs}", flush=True)
 
-    feats = features_for_frames(gray, depth, 512, dev)
+    feats = frontend()
     for name, fn in (
-        ("frontend", lambda: features_for_frames(gray, depth, 512, dev)),
+        ("frontend", frontend),
         ("backend", lambda: system.run_slam(
             torch.Generator().manual_seed(args.seed), feats, seq.cam, cfg)),
     ):

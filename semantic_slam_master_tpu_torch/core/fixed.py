@@ -32,6 +32,26 @@ def masked_topk(
     return values, indices, valid
 
 
+def quantile(x: torch.Tensor, q: float, dim: int = -1) -> torch.Tensor:
+    """Linear-interpolation quantile along ``dim``, in the arithmetic of
+    ``jnp.quantile(method="linear")`` as XLA compiles it on the CPU: sort,
+    position q * (n - 1) in f32, then ``fma(low, 1 - w, high * w)`` (the
+    fused multiply-add taken exactly in f64 and rounded once to f32). A
+    slice holding a NaN gives NaN. Takes float32."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    srt = torch.sort(x, dim=-1).values
+    pos = torch.tensor(q, dtype=x.dtype) * torch.tensor(n - 1, dtype=x.dtype)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1 - hw
+    lo = srt[..., int(low.clamp(0, n - 1))]
+    hi = srt[..., int(high.clamp(0, n - 1))]
+    hi_w = hi * hw.to(x.device)
+    out = (lo.double() * lw.double().to(x.device) + hi_w.double()).to(x.dtype)
+    return torch.where(torch.isnan(x).any(dim=-1), torch.full_like(out, float("nan")), out)
+
+
 def inv3x3(V: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     """Closed-form batched 3x3 inverse (adjugate / determinant)."""
     a, b, c = V[..., 0, 0], V[..., 0, 1], V[..., 0, 2]

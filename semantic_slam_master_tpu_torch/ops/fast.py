@@ -59,13 +59,18 @@ def detect(
     nms_radius: int = 3,
     margin: int = 16,
     subpixel: bool = False,
+    score_weight: torch.Tensor | None = None,
 ) -> Keypoints:
     """FAST keypoints with lexicographic (score, index) NMS and fixed-K
-    top-k; see the JAX ``detect`` for the design notes."""
+    top-k; see the JAX ``detect`` for the design notes. ``score_weight``
+    (B, H, W) multiplies the corner scores before NMS and top-k; the
+    sub-pixel fit still uses the raw response."""
     B, H, W = gray.shape
     dev = gray.device
     score = fast_score(gray, threshold)
     raw_score = score
+    if score_weight is not None:
+        score = score * score_weight
     zero = torch.zeros_like(score)
     pooled = max_pool_same(score, nms_radius)
     is_tied = (score >= pooled) & (score > 0.0)

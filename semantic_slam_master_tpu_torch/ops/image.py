@@ -74,3 +74,38 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         ww = torch.from_numpy(_resize_weights(W, out_w)).to(img.device)
         out = out @ ww  # (B, out_h, out_w)
     return out
+
+
+def resize_bilinear_nhwc(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``jax.image.resize(x, (B, out_h, out_w, C), "bilinear")`` of a
+    channels-last (B, H, W, C) tensor: the same weights as
+    ``resize_bilinear``, contracted over H, then W."""
+    B, H, W, C = x.shape
+    if out_h != H:
+        wh = torch.from_numpy(_resize_weights(H, out_h)).to(device=x.device, dtype=x.dtype)
+        x = torch.einsum("bhwc,hH->bHwc", x, wh)
+    if out_w != W:
+        ww = torch.from_numpy(_resize_weights(W, out_w)).to(device=x.device, dtype=x.dtype)
+        x = torch.einsum("bhwc,wW->bhWc", x, ww)
+    return x
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output sample of ``jax.image.resize(...,
+    "nearest")``: floor((i + 0.5) * in / out) in f32, with the constant
+    folded as XLA folds it, (i + 0.5) * (in * (1 / out)). The exact
+    quotient (torch's ``"nearest-exact"``) differs from it: at 480 -> 400
+    rows, 80 of the 400 indices."""
+    f32 = np.float32
+    pos = (np.arange(out_size, dtype=f32) + f32(0.5)) * (f32(in_size) * (f32(1.0) / f32(out_size)))
+    return np.floor(pos).astype(np.int64)
+
+
+def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``jax.image.resize(img, (B, out_h, out_w), "nearest")`` of (B, H, W)."""
+    B, H, W = img.shape
+    if out_h != H:
+        img = img[:, torch.from_numpy(_nearest_index(H, out_h)).to(img.device)]
+    if out_w != W:
+        img = img[:, :, torch.from_numpy(_nearest_index(W, out_w)).to(img.device)]
+    return img

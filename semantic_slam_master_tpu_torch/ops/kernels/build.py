@@ -33,6 +33,7 @@ _int = ctypes.c_int
 SIGNATURES = {
     "semslam_fast_score": [_vp, _vp, _int, _int, _int, ctypes.c_float, _vp],
     "semslam_aligned_patches": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    "semslam_gather_patches": [_vp, _vp, _vp, *[_int] * 10, _vp],
 }
 
 

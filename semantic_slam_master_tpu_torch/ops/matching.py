@@ -1,8 +1,10 @@
-"""Brute-force Hamming matching of packed ORB descriptors (port of
-``ops/matching.py``): Hamming distance as a +/-1 product,
-``(256 - <sa, sb>) / 2``, exact in f32; mutual nearest neighbours with a
-distance gate. ``torch.argmax`` returns the first maximum, as
-``jnp.argmax`` does, so ties resolve alike."""
+"""Brute-force descriptor matching (port of ``ops/matching.py``):
+Hamming distance of packed ORB descriptors as a +/-1 product,
+``(256 - <sa, sb>) / 2``, exact in f32; cosine similarity of learned
+float descriptors with f32 sums; mutual nearest neighbours with a
+distance or similarity gate and an optional ratio test.
+``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does, so
+ties resolve alike."""
 
 from __future__ import annotations
 
@@ -32,6 +34,12 @@ def hamming_distance_matrix(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.T
     return (NUM_BITS - dot) * 0.5
 
 
+def cosine_similarity_matrix(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
+    """(..., N, D) x (..., M, D) -> (..., N, M) f32 similarity (the
+    descriptors are L2-normalised by the refiner)."""
+    return torch.matmul(desc1.float(), desc2.float().transpose(-1, -2))
+
+
 def _mutual_and_ratio(
     sim: torch.Tensor,
     valid1: torch.Tensor | None,
@@ -57,6 +65,19 @@ def _mutual_and_ratio(
         second = torch.where(cols == best2[..., None], neg, sim).max(dim=-1).values
         ok = ok & (second < ratio * best_val)
     return Matches(idx2=best2, valid=ok, score=best_val)
+
+
+def match_cosine(
+    desc1: torch.Tensor,
+    desc2: torch.Tensor,
+    valid1: torch.Tensor | None = None,
+    valid2: torch.Tensor | None = None,
+    ratio: float | None = 0.9,
+    min_similarity: float | None = None,
+) -> Matches:
+    """Mutual-NN + ratio matching of float descriptors (..., N/M, D)."""
+    sim = cosine_similarity_matrix(desc1, desc2)
+    return _mutual_and_ratio(sim, valid1, valid2, ratio, min_similarity)
 
 
 def match_hamming(

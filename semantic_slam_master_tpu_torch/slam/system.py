@@ -3,8 +3,9 @@
 
 Map state: M landmark slots (position, descriptor, validity, weight) and
 a W-slot keyframe window (pose plus a dense (W, M) observation grid for
-window BA). Per frame: Hamming matching of the frame's keypoints against
-every live landmark, RANSAC + Gauss-Newton PnP against the map, and, when
+window BA). Per frame: descriptor matching of the frame's keypoints
+against every live landmark (Hamming for packed ORB words, cosine for
+learned float descriptors), RANSAC + Gauss-Newton PnP against the map, and, when
 tracking support drops, a keyframe: unmatched keypoints become new
 landmarks, the observation row is written and the window is bundle
 adjusted. The JAX ``lax.scan`` over frames is a Python loop here and its
@@ -28,7 +29,7 @@ class MapState(NamedTuple):
     """Fixed-shape SLAM map. M landmark slots, W keyframe slots."""
 
     positions: torch.Tensor  # (M, 3) world
-    descriptors: torch.Tensor  # (M, 8) int64 packed ORB words
+    descriptors: torch.Tensor  # (M, D) int64 packed ORB words or f32 learned
     lm_valid: torch.Tensor  # (M,) bool
     lm_weight: torch.Tensor  # (M,) semantic/confidence BA weight
     lm_obs: torch.Tensor  # (M,) observation count
@@ -43,7 +44,8 @@ class MapState(NamedTuple):
 
 
 class SlamConfig(NamedTuple):
-    """The JAX package's ``SlamConfig`` fields that the ORB path reads."""
+    """The JAX package's ``SlamConfig`` fields that the ORB and learned
+    paths read."""
 
     num_landmarks: int = 2048
     window_size: int = 5
@@ -51,7 +53,8 @@ class SlamConfig(NamedTuple):
     min_inliers: int = 15
     keyframe_min_inlier_ratio: float = 0.4
     keyframe_min_gap: int = 2
-    match_max_distance: float = 64.0
+    match_max_distance: float = 64.0  # Hamming gate (packed ORB descriptors)
+    match_min_cosine: float = 0.6  # cosine gate (learned float descriptors)
     min_landmark_weight: float = 0.25
     ba_iters: int = 4
     depth_weight: float = 30.0
@@ -78,12 +81,25 @@ def _scatter(dst: torch.Tensor, slots: torch.Tensor, src: torch.Tensor) -> torch
     return out
 
 
-def init_map(cfg: SlamConfig, device, desc_dim: int = 8, dtype=torch.float32) -> MapState:
+def match_features(desc1, desc2, valid1, valid2, cfg: SlamConfig) -> matching.Matches:
+    """Descriptor matching dispatched on dtype: packed ORB words (integer
+    dtype; the port keeps them as int64) use Hamming with the distance
+    gate, learned float descriptors cosine similarity with the
+    ``match_min_cosine`` gate and no ratio test."""
+    if not torch.is_floating_point(desc1):
+        return matching.match_hamming(desc1, desc2, valid1, valid2, max_distance=cfg.match_max_distance)
+    return matching.match_cosine(
+        desc1, desc2, valid1, valid2, ratio=None, min_similarity=cfg.match_min_cosine
+    )
+
+
+def init_map(cfg: SlamConfig, device, desc_dim: int = 8, desc_dtype=torch.int64,
+             dtype=torch.float32) -> MapState:
     M, W = cfg.num_landmarks, cfg.window_size
     kw = dict(dtype=dtype, device=device)
     return MapState(
         positions=torch.zeros((M, 3), **kw),
-        descriptors=torch.zeros((M, desc_dim), dtype=torch.int64, device=device),
+        descriptors=torch.zeros((M, desc_dim), dtype=desc_dtype, device=device),
         lm_valid=torch.zeros((M,), dtype=torch.bool, device=device),
         lm_weight=torch.ones((M,), **kw),
         lm_obs=torch.zeros((M,), **kw),
@@ -182,7 +198,7 @@ def bootstrap_map(first: FrameFeatures, cam: PinholeCamera, cfg: SlamConfig) -> 
     """First frame defines the world: its valid keypoints become landmarks
     and keyframe 0 (at identity)."""
     dev = first.xy.device
-    state = init_map(cfg, dev, desc_dim=first.desc.shape[-1])
+    state = init_map(cfg, dev, desc_dim=first.desc.shape[-1], desc_dtype=first.desc.dtype)
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     insert_mask = first.valid & (first.sem_weight >= cfg.min_landmark_weight)
     state = _insert_landmarks(state, eye, first, insert_mask, first.sem_weight, cam)
@@ -205,10 +221,7 @@ def slam_step(
 ):
     """One tracked frame. ``u`` (num_hypotheses, 3) RANSAC uniforms.
     Returns (state, T_wc, since, num_inliers, num_matches, is_keyframe)."""
-    m = matching.match_hamming(
-        feats.desc, state.descriptors, feats.valid, state.lm_valid,
-        max_distance=cfg.match_max_distance,
-    )
+    m = match_features(feats.desc, state.descriptors, feats.valid, state.lm_valid, cfg)
     lm_idx, matched = m.idx2, m.valid
     pts_world = state.positions[lm_idx]
     pts_cam_meas = backproject(feats.xy, feats.depth, cam)

@@ -1,5 +1,7 @@
-"""Multi-scale ORB frontend (port of ``slam/tracking.py``'s
-``build_pyramid`` and ``extract_features``)."""
+"""Frontends feeding the SLAM backend (port of ``slam/tracking.py``'s
+``build_pyramid``, ``extract_features`` and ``extract_learned_features``):
+the multi-scale ORB frontend with optional semantic weight maps, and
+the learned frontend's adapter to ``FrameFeatures``."""
 
 from __future__ import annotations
 
@@ -8,15 +10,22 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models.segmenter import map_coords
 from ..ops import fast, image, orb
 from ..ops.sampling import nearest_sample
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
 
 class FrameFeatures(NamedTuple):
-    """Per-frame frontend output, batched over frames (F leading axis)."""
+    """Per-frame frontend output, batched over frames (F leading axis).
+    ``desc`` is packed ORB words (int64, Hamming-matched) or learned f32
+    descriptors (cosine-matched); ``slam.system.match_features``
+    dispatches on the dtype."""
 
     xy: torch.Tensor  # (F, N, 2) level-0 pixels
-    desc: torch.Tensor  # (F, N, 8) int64 packed ORB words
+    desc: torch.Tensor  # (F, N, 8) int64 packed ORB words or (F, N, D) f32
     depth: torch.Tensor  # (F, N) metric depth at keypoints
     valid: torch.Tensor  # (F, N) bool
     score: torch.Tensor  # (F, N)
@@ -56,19 +65,28 @@ def extract_features(
     num_keypoints: int = 512,
     threshold: float = 0.05,
     nms_radius: int = 3,
+    weight_map: torch.Tensor | None = None,
     num_levels: int = 4,
     scale_factor: float = 1.2,
     subpixel: bool = True,
 ) -> FrameFeatures:
     """(F, H, W) gray in [0, 1] + metric depth -> FrameFeatures: per level
     FAST detection with NMS and top-k, Gaussian blur, rBRIEF; keypoints
-    map back to level-0 pixels and sample depth there."""
+    map back to level-0 pixels and sample depth there.
+
+    ``weight_map`` (F, Hm, Wm), a per-pixel semantic residual weight (e.g.
+    ``models.segmenter.class_weights_map``), possibly at a lower
+    resolution than the frame: its nearest resize to each level weights
+    the corner scores (``detect(score_weight=...)``), and it is sampled at
+    the keypoints (pixel-centre rescaled onto its grid) into
+    ``sem_weight``."""
     levels = build_pyramid(gray, num_levels, scale_factor)
     quotas = level_quotas([p.shape[1:] for p in levels], num_keypoints)
     H0, W0 = gray.shape[1:]
     xys, descs, scores, valids = [], [], [], []
     for img, quota in zip(levels, quotas):
-        kp = fast.detect(img, int(quota), threshold, nms_radius, subpixel=subpixel)
+        w_lvl = None if weight_map is None else image.resize_nearest(weight_map, *img.shape[1:])
+        kp = fast.detect(img, int(quota), threshold, nms_radius, subpixel=subpixel, score_weight=w_lvl)
         blurred = image.gaussian_blur(img, sigma=2.0, radius=3)
         descs.append(orb.describe(blurred, kp.xy))
         ry = (H0 - 1) / max(img.shape[1] - 1, 1)
@@ -85,5 +103,55 @@ def extract_features(
         depth=d,
         valid=valid,
         score=torch.cat(scores, dim=1),
-        sem_weight=torch.ones_like(d),
+        sem_weight=torch.ones_like(d) if weight_map is None else sample_weight_map(weight_map, xy, (H0, W0)),
+    )
+
+
+def sample_weight_map(weight_map: torch.Tensor, xy: torch.Tensor, image_size) -> torch.Tensor:
+    """Nearest sample of a (F, Hm, Wm) weight map at full-resolution
+    keypoints, rescaled pixel-centre aligned when the map is smaller."""
+    map_size = tuple(weight_map.shape[1:])
+    if map_size != tuple(image_size):
+        xy = map_coords(xy, image_size, map_size)
+    return nearest_sample(weight_map, xy)
+
+
+def normalize_rgb(rgb: torch.Tensor) -> torch.Tensor:
+    """[0, 1] RGB -> ImageNet-normalised, as the learned frontend takes it."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=rgb.dtype, device=rgb.device)
+    std = torch.tensor(IMAGENET_STD, dtype=rgb.dtype, device=rgb.device)
+    return (rgb - mean) / std
+
+
+def extract_learned_features(
+    model,
+    rgb: torch.Tensor,
+    depth: torch.Tensor,
+    weight_map: torch.Tensor | None = None,
+) -> FrameFeatures:
+    """Learned frontend -> FrameFeatures: ``model`` (a
+    ``models.frontend.LearnedFrontend``) on (F, H, W, 3) RGB in [0, 1],
+    ImageNet-normalised here, depth (F, H, W) sampled at the keypoints. Descriptors come out f32 (cosine-matched downstream);
+    the uncertainty head's confidence becomes ``sem_weight``, times the
+    optional semantic ``weight_map``.
+
+    The JAX function samples ``weight_map`` at full-resolution pixels
+    whatever its size; a 1/4-resolution map (the segmenter's SLAM path)
+    is here rescaled onto its grid first, as ``extract_features`` does.
+    For a full-resolution map the two agree."""
+    with torch.no_grad():
+        out = model(normalize_rgb(rgb))
+    xy = out.keypoints_px
+    d = nearest_sample(depth, xy)
+    valid = out.valid & (d > 0.05) & (d < 15.0)
+    sem_w = out.confidence
+    if weight_map is not None:
+        sem_w = sem_w * sample_weight_map(weight_map, xy, tuple(rgb.shape[1:3]))
+    return FrameFeatures(
+        xy=xy,
+        desc=out.descriptors.float(),
+        depth=d,
+        valid=valid,
+        score=out.scores,
+        sem_weight=sem_w.float(),
     )

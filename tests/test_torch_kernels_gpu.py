@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from semantic_slam_master_tpu_torch.ops.kernels import fast_score as kfast
+from semantic_slam_master_tpu_torch.ops.kernels import gather_patches as kgather
 from semantic_slam_master_tpu_torch.ops.kernels import patches as kpatch
 
 pytestmark = pytest.mark.gpu
@@ -46,15 +47,52 @@ def test_patch_kernel_matches_plain(cuda, shape, n):
     assert torch.equal(got, ref)
 
 
+def _centers(B, n, H, W, gen):
+    xy = torch.rand((B, n, 2), generator=gen) * torch.tensor([W + 40.0, H + 40.0]) - 20.0
+    xy[:, 0] = torch.tensor([10.5, 2.5])  # half-pixel ties
+    xy[:, -1] = torch.tensor([W - 0.5, H + 3.0])  # beyond the clamp edge
+    return xy
+
+
+@pytest.mark.parametrize("shape,n,radius", [((8, 480, 640), 500, 10), ((1, 59, 300), 37, 10), ((2, 21, 33), 5, 10), ((3, 40, 40), 9, 15)])
+def test_gather_patches_kernel_matches_plain(cuda, shape, n, radius):
+    B, H, W = shape
+    gen = torch.Generator().manual_seed(2)
+    img = torch.randn(shape, generator=gen).to(cuda)
+    xy = _centers(B, n, H, W, gen).to(cuda)
+    got = kgather.gather_patches(img, xy, radius)
+    ref = kgather.gather_patches_reference(img, xy, radius, 2 * radius + 1)
+    torch.cuda.synchronize()
+    assert got.shape == (B, n, 2 * radius + 1, 2 * radius + 1)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape,n", [((2, 64, 128), 16), ((1, 48, 128), 8), ((1, 64, 128), 7), ((2, 480, 640), 8192)])
+def test_gather_patches_padded_kernel_matches_plain(cuda, shape, n):
+    B, H, W = shape
+    gen = torch.Generator().manual_seed(3)
+    img = torch.randn(shape, generator=gen).to(cuda)
+    xy = _centers(B, n, H, W, gen).to(cuda)
+    got = kgather.gather_patches_padded(img, xy, 15)
+    ref = kgather.gather_patches_reference(img, xy, 15, 32)
+    torch.cuda.synchronize()
+    assert got.shape == (B, n, 32, 32)
+    assert torch.equal(got, ref)
+
+
 def test_wrappers_count_launches(cuda):
-    before = (kfast.fast_score.launches, kpatch.gather_aligned_patches.launches)
+    counters = (kfast.fast_score, kpatch.gather_aligned_patches, kgather.gather_patches,
+                kgather.gather_patches_padded)
+    before = [c.launches for c in counters]
     img = torch.rand((1, 64, 64), device=cuda)
+    xy = torch.full((1, 3, 2), 30.0, device=cuda)
     kfast.fast_score(img)
-    kpatch.gather_aligned_patches(img, torch.full((1, 3, 2), 30.0, device=cuda))
+    kpatch.gather_aligned_patches(img, xy)
+    kgather.gather_patches(img, xy, 10)
+    kgather.gather_patches_padded(img, xy, 15)
     kfast.fast_score_plain(img)
-    assert (kfast.fast_score.launches, kpatch.gather_aligned_patches.launches) == (
-        before[0] + 1, before[1] + 1,
-    )
+    kgather.gather_patches_reference(img, xy, 10, 21)
+    assert [c.launches for c in counters] == [b + 1 for b in before]
 
 
 def test_cpu_tensors_take_the_plain_version():
