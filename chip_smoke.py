@@ -8,27 +8,37 @@ device synchronised at the end of each):
 
 1. device  -- CUDA present; the card's name and power limit (nvidia-smi).
 2. build   -- one nvcc call builds semantic_slam_master_tpu_torch/csrc/*.cu.
-3. fast_score / 4. gather_aligned_patches / 5. gather_patches -- each
-   kernel against its plain PyTorch version at the main paths' shapes
-   (FAST-9 decisions and patches exact, scores within 1e-6 relative;
-   gather_patches in both modes: the learned path's 8x500 windows of
-   radius 10, the padded 32x32 mode at N=8192, and ragged cases with N % 8
-   != 0 and border centres), timed with CUDA events (median of 20
-   launches after warm-up, L2 flushed between launches, host enqueue time
-   hidden behind a device spin) beside its bound, the plain version's
-   time and, for the gathers, one ``torch.gather`` over the precomputed
-   flat index (the gather alone). A gather's bound counts the distinct
+3. ORB path inputs -- 16 rendered 640x480 frames, their four pyramid
+   levels, the levels blurred and the path's detections on them, as
+   ``extract_features`` makes them.
+4. fast_score / 5. gather_aligned_patches / 6. gather_patches -- each
+   kernel bit-exact against its plain PyTorch version: the ORB kernels on
+   random frames at the path's shapes and ragged ones (keypoints on every
+   clamp edge) and on the path's own inputs, where every pixel failing
+   the 4-point test must score 0; gather_patches in both modes (the
+   learned path's 8x500 windows of radius 10, the padded 32x32 mode at
+   N=8192, and ragged cases with N % 8 != 0 and border centres). Each is
+   timed with CUDA events (median of 20 launches after warm-up, L2
+   flushed between launches, host enqueue time hidden behind a device
+   spin) beside its bound, the plain version's time and, for the gathers,
+   one ``torch.gather`` over the precomputed flat index (the gather
+   alone). A bound is the larger of bytes over 3.35 TB/s and operations
+   over the f32 issue rate (33.45 T/s: compares and adds issue at half the
+   FMA-counted 67 TFLOP/s). fast_score's operations are the 4-point test
+   on every pixel and the 16-point chain on the pixels that pass it (the
+   share is printed; the old bound, the chain on every pixel at 67
+   TFLOP/s, is printed beside it). A gather's bytes are the distinct
    source pixels its windows cover, read once, plus its output.
-6. ORB frontend -- extract_features on two 640x480 frames on the card
+7. ORB frontend -- extract_features on two 640x480 frames on the card
    against the same call on the CPU (the plain versions of both
    kernels), and on two frames of the dynamic world with the GT
    class-weight map, which must change the detections and down-weight
    some keypoints on the card as on the CPU.
-7. ORB main path -- ``run-slam --synthetic`` at 640x480 with the defaults
+8. ORB main path -- ``run-slam --synthetic`` at 640x480 with the defaults
    (512 keypoints, 2048 landmarks, window 5, 4 BA iterations, 16-frame
    frontend chunks), then ``evaluate``; ATE finite and below 0.05 m, both
    ORB kernels launched 4x per frontend chunk.
-8. learned frontend + segmenter -- the ViT-S/16 frontend of
+9. learned frontend + segmenter -- the ViT-S/16 frontend of
    configs/train_vits_synthetic_long.yaml (its offset head's last conv
    given seeded non-zero weights, so sub-patch offsets are not all 0) and
    the segmenter, seeded alike, on two 640x480 frames on the card against
@@ -42,16 +52,19 @@ device synchronised at the end of each):
    99% of the segmenter's 1/4-resolution labels agree (bf16 rounds at
    other places on the card; a near-tie in saliency rank can move a
    keypoint).
-9. learned path -- ``run-slam --synthetic --frontend learned
+10. learned path -- ``run-slam --synthetic --frontend learned
    --train-config configs/train_vits_synthetic_long.yaml --semantics
    model`` (ViT-S/16 at full width with sub-patch refinement, seeded
    weights, 8-frame chunks), 60 frames, then ``evaluate``: finite poses, a
    successful evaluation, gather_patches launched at least once per
    chunk; fps and the time split (segmenter, backbone, heads, SLAM loop)
    printed. ATE is not bounded: the weights are seeded, not trained.
-10. dynamic path -- ``run-slam --synthetic --dynamic --semantics gt`` (ORB
+11. dynamic path -- ``run-slam --synthetic --dynamic --seed 1`` (ORB
    frontend, so the weight map and score weight run through both ORB
-   kernels), 60 frames, ATE below DYNAMIC_ATE_BOUND_M.
+   kernels), 60 frames, with ``--semantics gt`` (ATE below
+   DYNAMIC_ATE_BOUND_M) and ``off`` (ATE above DYNAMIC_OFF_ATE_FLOOR_M:
+   without the weights this seed tracks the walking person, as in the
+   paired CPU runs of both packages).
 
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Every failure raises, so the exit code
@@ -77,22 +90,36 @@ TIMED_ITERS = 20
 WARMUP_ITERS = 3
 PLAIN_ITERS = 5
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers the host's enqueue
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and
-# non-tensor-core float32 rate.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
+# non-tensor-core float32 rate, which counts an FMA as two operations.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# FAST-9 float32 work per pixel: 16 circle points x (difference, two
-# compares, bright: subtract + max + add, dark: negate + subtract + max +
-# add) plus the final select-add-select.
+F32_FLOPS_PER_S = 67e12
+# Compares, subtracts, max, adds and rounds issue one per lane per cycle:
+# 132 SMs x 128 lanes x 1.98 GHz, half the FMA-counted rate. The bounds
+# price the kernels' operations at this rate.
+F32_OPS_PER_S = 132 * 128 * 1.98e9
+FAST_THRESHOLD = 0.05  # the ORB path's (slam/tracking.py::extract_features)
+# FAST-9 float32 work per pixel that runs the 16-point chain: 16 circle
+# points x (difference, two compares, bright: subtract + max + add, dark:
+# negate + subtract + max + add) plus the final select-add-select.
 FAST_F32_OPS_PER_PIXEL = 16 * 10 + 3
+# The 4-point early test every pixel runs: 4 differences, 8 compares.
+FAST_EARLY_OPS_PER_PIXEL = 4 + 8
 # Patch gather: quantise (max, min, multiply, round) per gathered pixel.
 PATCH_F32_OPS_PER_PIXEL = 4
 
-# run-slam --synthetic --dynamic --semantics gt, 60 frames at 640x480: the
-# JAX package's own ATE on the CPU is 0.0155 m (seed 0; 0.0172, 0.0258,
-# 0.0174 m for seeds 1-3); the port draws other RANSAC samples, so the
-# bound is twice the worst of those four.
+# run-slam --synthetic --dynamic, 60 frames at 640x480, paired CPU runs of
+# both packages (the port draws JAX's RANSAC uniforms for the same seed):
+# with --semantics gt the JAX package gives 0.0155, 0.0172, 0.0258, 0.0174
+# m over seeds 0-3 and the port 0.0151, 0.0172, 0.0258, 0.0174 m; the gt
+# bound is twice the worst. With --semantics off, seed 1 tracks the walking
+# person: 1.0573 m (JAX) and 1.0574 m (port). The card runs seed 1 both
+# ways: gt below DYNAMIC_ATE_BOUND_M, off above DYNAMIC_OFF_ATE_FLOOR_M
+# (half the paired runs' failure, ten times the gt bound), which shows the
+# weighting at work.
 DYNAMIC_ATE_BOUND_M = 0.05
+DYNAMIC_OFF_ATE_FLOOR_M = 0.5
+DYNAMIC_SEED = 1
 LEARNED_CONFIG = "configs/train_vits_synthetic_long.yaml"
 # gather_patches cases: (wrapper, (B, H, W), N, radius). The first is the
 # learned path's call per 8-frame chunk (500 keypoints, 21x21 windows);
@@ -105,8 +132,11 @@ GATHER_CASES = [
 ]
 
 FAST_SHAPES = [(16, 480, 640), (16, 400, 544), (16, 336, 448), (16, 280, 384)]
-FAST_RAGGED = (2, 83, 300)
+# Ragged: heights and widths no multiple of the kernel's 128 x 16 tile, a
+# width no multiple of 4 (no 16-byte rows), a frame smaller than a tile.
+FAST_RAGGED = [(2, 83, 300), (1, 37, 129), (1, 7, 5)]
 PATCH_CASES = [((16, 480, 640), 202), ((16, 400, 544), 142), ((16, 336, 448), 98), ((16, 280, 384), 70)]
+PATCH_RAGGED = [((2, 83, 300), 37), ((1, 32, 33), 1), ((3, 59, 301), 9)]
 
 T_START = time.perf_counter()
 
@@ -163,50 +193,120 @@ def unique_pixels(idx, n_pixels: int) -> int:
     return int(seen.sum())
 
 
-def bound(bytes_moved: float, f32_ops: float):
+def bound(bytes_moved: float, f32_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = f32_ops / F32_OPS_PER_S * 1e3
+    t_ops = f32_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_fast(torch, kfast, gen, flush) -> dict:
-    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0, "max_abs_err": 0.0}
-    for shape in FAST_SHAPES + [FAST_RAGGED]:
-        # Smooth random texture: a coarse uniform grid upsampled, plus
-        # fine noise, so corners are neither absent nor everywhere.
-        B, H, W = shape
-        coarse = torch.rand((B, 1, H // 8 + 1, W // 8 + 1), generator=gen, device="cuda")
-        img = torch.nn.functional.interpolate(coarse, size=(H, W), mode="bilinear")[:, 0]
-        img = (img + 0.05 * torch.rand((B, H, W), generator=gen, device="cuda")).clamp(0, 1)
-        img = img.contiguous()
-        got = kfast.fast_score(img, 0.05)
-        ref = kfast.fast_score_plain(img, 0.05)
+def texture(torch, shape, gen):
+    """Smooth random texture in [0, 1]: a coarse uniform grid upsampled,
+    plus fine noise, so corners are neither absent nor everywhere."""
+    B, H, W = shape
+    coarse = torch.rand((B, 1, H // 8 + 1, W // 8 + 1), generator=gen, device="cuda")
+    img = torch.nn.functional.interpolate(coarse, size=(H, W), mode="bilinear")[:, 0]
+    return (img + 0.05 * torch.rand((B, H, W), generator=gen, device="cuda")).clamp(0, 1).contiguous()
+
+
+def path_inputs(torch, synthetic, render_all, tracking, fast, image) -> list:
+    """What the ORB path hands its two kernels for one 16-frame chunk of
+    the rendered 640x480 world: per pyramid level (gray level, blurred
+    level, keypoint xy), made by the calls ``extract_features`` makes."""
+    seq = synthetic.make_sequence(num_frames=16, scale=1.0)
+    gray = torch.from_numpy(render_all(seq)[1]).cuda()
+    levels = tracking.build_pyramid(gray, 4)
+    quotas = tracking.level_quotas([lvl.shape[1:] for lvl in levels], 512)
+    out = []
+    for lvl, quota in zip(levels, quotas):
+        kp = fast.detect(lvl, int(quota), FAST_THRESHOLD, 3, subpixel=True)
+        out.append((lvl, image.gaussian_blur(lvl, sigma=2.0, radius=3), kp.xy.contiguous()))
+    torch.cuda.synchronize()
+    return out
+
+
+def fast_bounds(px: int, n_pass: int) -> dict:
+    """fast_score's bounds for ``px`` pixels of which ``n_pass`` pass the
+    4-point test: the recounted one (bytes; the early test on every pixel
+    and the chain on the passing ones, at the issue rate), the old one
+    (the chain on every pixel at the FMA-counted rate) and the chain on
+    every pixel at the issue rate, the floor of a design without the
+    early test."""
+    ops = FAST_EARLY_OPS_PER_PIXEL * px + FAST_F32_OPS_PER_PIXEL * n_pass
+    b_ms, b_by = bound(8.0 * px, ops)
+    old_ms, old_by = bound(8.0 * px, FAST_F32_OPS_PER_PIXEL * px, F32_FLOPS_PER_S)
+    chain_ms, chain_by = bound(8.0 * px, FAST_F32_OPS_PER_PIXEL * px)
+    return {"bytes": 8.0 * px, "ops": ops, "bound_ms": b_ms, "bound_by": b_by, "old_bound_ms": old_ms,
+            "old_bound_by": old_by, "chain_bound_ms": chain_ms}
+
+
+def check_fast(torch, kfast, gen, flush, path) -> dict:
+    """fast_score bit-exact against its plain version on random texture
+    (FAST_SHAPES and the ragged shapes) and on the ORB path's four pyramid
+    levels; every pixel that fails the 4-point test scores 0. Both inputs
+    are timed per 16-frame chunk (the four levels summed); the path's
+    levels give the kernels line."""
+    cases = [("random", texture(torch, shape, gen)) for shape in FAST_SHAPES + FAST_RAGGED]
+    cases += [("path", lvl) for lvl, _, _ in path]
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "px": 0, "pass": 0} for k in ("random", "path")}
+    max_err = 0.0
+    for kind, img in cases:
+        shape = tuple(img.shape)
+        got = kfast.fast_score(img, FAST_THRESHOLD)
+        ref = kfast.fast_score_plain(img, FAST_THRESHOLD)
+        cand = kfast.fast_candidates_plain(img, FAST_THRESHOLD)
         torch.cuda.synchronize()
-        if not torch.equal(got > 0, ref > 0):
-            raise AssertionError(f"fast_score {shape}: segment-test decisions differ")
         err = (got - ref).abs().max().item()
-        if not torch.allclose(got, ref, rtol=1e-6, atol=0.0):
-            raise AssertionError(f"fast_score {shape}: max |kernel - plain| = {err}")
-        n_corners = int((got > 0).sum())
-        ms = median_ms(lambda: kfast.fast_score(img, 0.05), TIMED_ITERS, WARMUP_ITERS, flush)
-        plain_ms = median_ms(lambda: kfast.fast_score_plain(img, 0.05), PLAIN_ITERS, 1, flush)
-        px = B * H * W
-        b_ms, b_by = bound(8.0 * px, FAST_F32_OPS_PER_PIXEL * px)
-        log(f"  fast_score {shape}: exact={err == 0.0} max_abs_err={err:.3g} "
-            f"corners={n_corners} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f}")
-        if shape in FAST_SHAPES:
-            total["ms"] += ms
-            total["plain_ms"] += plain_ms
-            total["bytes"] += 8.0 * px
-            total["ops"] += FAST_F32_OPS_PER_PIXEL * px
-        total["max_abs_err"] = max(total["max_abs_err"], err)
-    return total
+        if not torch.equal(got, ref):
+            raise AssertionError(f"fast_score {kind} {shape}: kernel != plain (max err {err}, "
+                                 f"decisions equal {torch.equal(got > 0, ref > 0)})")
+        if bool((ref[~cand] != 0).any()):
+            raise AssertionError(f"fast_score {kind} {shape}: a pixel failing the 4-point test scores")
+        max_err = max(max_err, err)
+        ms = median_ms(lambda: kfast.fast_score(img, FAST_THRESHOLD), TIMED_ITERS, WARMUP_ITERS, flush)
+        plain_ms = median_ms(lambda: kfast.fast_score_plain(img, FAST_THRESHOLD), PLAIN_ITERS, 1, flush)
+        px, n_pass = img.numel(), int(cand.sum())
+        b = fast_bounds(px, n_pass)
+        log(f"  fast_score {kind} {shape}: exact=True corners={int((got > 0).sum())} "
+            f"pass_share={n_pass / px:.4f} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.4f} "
+            f"({b['bound_by']}) share_of_bound={b['bound_ms'] / ms:.3f} old_bound_ms={b['old_bound_ms']:.4f} "
+            f"chain_on_every_pixel_bound_ms={b['chain_bound_ms']:.4f}")
+        if kind == "path" or shape in FAST_SHAPES:
+            t = totals[kind]
+            t["ms"] += ms
+            t["plain_ms"] += plain_ms
+            t["px"] += px
+            t["pass"] += n_pass
+    for kind, t in totals.items():
+        b = fast_bounds(t["px"], t["pass"])
+        t.update(b, pass_share=t["pass"] / t["px"])
+        log(f"  fast_score {kind} per 16-frame chunk (four levels): ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} pass_share={t['pass_share']:.4f} bound_ms={b['bound_ms']:.4f} "
+            f"({b['bound_by']}) share_of_bound={b['bound_ms'] / t['ms']:.3f} old_bound_ms="
+            f"{b['old_bound_ms']:.4f} ({b['old_bound_by']}) chain_on_every_pixel_bound_ms="
+            f"{b['chain_bound_ms']:.4f}")
+    return dict(totals["path"], max_abs_err=max_err, random_ms=totals["random"]["ms"])
 
 
-def check_patches(torch, kpatch, gen, flush) -> dict:
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0, "max_abs_err": 0.0}
-    for (B, H, W), N in PATCH_CASES:
+def patch_bytes_ops(torch, kpatch, img, xy):
+    """(bytes, ops, distinct pixels, flat index) of one aligned gather: the
+    distinct f32 pixels the windows cover read once, 8 B of xy per
+    keypoint, a 32x32 bf16 patch written per keypoint; quantisation ops."""
+    B, H, W = img.shape
+    N = xy.shape[1]
+    cx, cy = kpatch.patch_centers(xy, H, W)
+    d = torch.arange(32, device="cuda") - 15
+    idx = ((cy[..., None, None] + d[:, None]) * W + cx[..., None, None] + d[None, :]).reshape(B, -1)
+    n_read = unique_pixels(idx, H * W)
+    return n_read * 4 + B * N * (8 + 32 * 32 * 2), B * N * 32 * 32 * PATCH_F32_OPS_PER_PIXEL, n_read, idx
+
+
+def check_patches(torch, kpatch, gen, flush, path) -> dict:
+    """gather_aligned_patches bit-exact against its plain version on random
+    frames with keypoints on every clamp edge (PATCH_CASES, the ragged
+    cases) and on the ORB path's blurred levels and detections. Both are
+    timed per 16-frame chunk; the path's give the kernels line."""
+    cases = []
+    for (B, H, W), N in PATCH_CASES + PATCH_RAGGED:
         img = torch.rand((B, H, W), generator=gen, device="cuda") * 1.2 - 0.1
         xy = torch.rand((B, N, 2), generator=gen, device="cuda")
         xy = xy * torch.tensor([W + 10.0, H + 10.0], device="cuda") - 5.0
@@ -216,7 +316,14 @@ def check_patches(torch, kpatch, gen, flush) -> dict:
              [14.5, 15.5], [15.0, 15.0], [-3.0, H + 3.0], [W / 2 + 0.5, H / 2 - 0.5]],
             device="cuda",
         )
-        xy[:, : len(edges)] = edges
+        xy[:, : min(N, len(edges))] = edges[:N]
+        cases.append(("random", img, xy))
+    cases += [("path", blurred, xy) for _, blurred, xy in path]
+    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+              for k in ("random", "path")}
+    max_err = 0.0
+    for kind, img, xy in cases:
+        (B, H, W), N = img.shape, xy.shape[1]
         got = kpatch.gather_aligned_patches(img, xy)
         ref = kpatch.gather_aligned_patches_plain(img, xy)
         torch.cuda.synchronize()
@@ -224,31 +331,29 @@ def check_patches(torch, kpatch, gen, flush) -> dict:
             raise AssertionError(f"patches {(B, H, W, N)}: {got.dtype} {tuple(got.shape)}")
         err = (got.float() - ref.float()).abs().max().item()
         if not torch.equal(got, ref):
-            raise AssertionError(f"patches {(B, H, W, N)}: kernel != plain (max err {err})")
+            raise AssertionError(f"patches {kind} {(B, H, W, N)}: kernel != plain (max err {err})")
+        max_err = max(max_err, err)
         ms = median_ms(lambda: kpatch.gather_aligned_patches(img, xy), TIMED_ITERS, WARMUP_ITERS, flush)
         plain_ms = median_ms(lambda: kpatch.gather_aligned_patches_plain(img, xy), PLAIN_ITERS, 1, flush)
-        cx, cy = kpatch.patch_centers(xy, H, W)
-        d = torch.arange(32, device="cuda") - 15
-        idx = ((cy[..., None, None] + d[:, None]) * W + cx[..., None, None] + d[None, :]).reshape(B, -1)
+        nbytes, ops, n_read, idx = patch_bytes_ops(torch, kpatch, img, xy)
         flat = img.reshape(B, H * W)
         library_ms = median_ms(lambda: torch.gather(flat, 1, idx), TIMED_ITERS, WARMUP_ITERS, flush)
-        # The distinct f32 pixels the windows cover read once, 8 B of xy
-        # per keypoint, a 32x32 bf16 patch written per keypoint.
-        n_read = unique_pixels(idx, H * W)
-        nbytes = n_read * 4 + B * N * (8 + 32 * 32 * 2)
-        ops = B * N * 32 * 32 * PATCH_F32_OPS_PER_PIXEL
         b_ms, b_by = bound(nbytes, ops)
-        log(f"  gather_aligned_patches {(B, H, W)} N={N}: exact=True ms={ms:.4f} "
+        log(f"  gather_aligned_patches {kind} {(B, H, W)} N={N}: exact=True ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"share_of_bound={b_ms / ms:.3f} distinct_pixels_read={n_read} "
             f"window_pixels={B * N * 32 * 32}")
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["library_ms"] += library_ms
-        total["bytes"] += nbytes
-        total["ops"] += ops
-        total["max_abs_err"] = max(total["max_abs_err"], err)
-    return total
+        if kind == "path" or ((B, H, W), N) in PATCH_CASES:
+            t = totals[kind]
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms), ("bytes", nbytes),
+                         ("ops", ops)):
+                t[k] += v
+    for kind, t in totals.items():
+        b_ms, b_by = bound(t["bytes"], t["ops"])
+        log(f"  gather_aligned_patches {kind} per 16-frame chunk (four levels): ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"share_of_bound={b_ms / t['ms']:.3f}")
+    return dict(totals["path"], max_abs_err=max_err, random_ms=totals["random"]["ms"])
 
 
 def check_gather(torch, kgather, gen, flush) -> dict:
@@ -409,10 +514,10 @@ def learned_split(torch, synthetic, render_all, tracking, run_slam_cli, select_k
     return out
 
 
-def run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, argv) -> tuple:
+def run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, argv, seed: int = SEED) -> tuple:
     """``run-slam`` then ``evaluate`` in ``tmp``: (run stats, evaluation)."""
     t0 = time.perf_counter()
-    run_slam_cli.main(argv + ["--device", "cuda", "--seed", str(SEED), "--output-dir", tmp])
+    run_slam_cli.main(argv + ["--device", "cuda", "--seed", str(seed), "--output-dir", tmp])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     evaluate_cli.main(["--trajectories", tmp])
@@ -487,6 +592,8 @@ def main() -> int:
     from semantic_slam_master_tpu_torch.ops.kernels import build
     from semantic_slam_master_tpu_torch.ops.kernels import fast_score as kfast
     from semantic_slam_master_tpu_torch.ops.kernels import gather_patches as kgather
+    from semantic_slam_master_tpu_torch.ops import fast as fast_mod
+    from semantic_slam_master_tpu_torch.ops import image
     from semantic_slam_master_tpu_torch.ops.kernels import patches as kpatch
     from semantic_slam_master_tpu_torch.slam import tracking
     from semantic_slam_master_tpu_torch.train import config as config_mod
@@ -520,10 +627,13 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    with phase("ORB path's kernel inputs (16 rendered frames, four pyramid levels)"):
+        path = path_inputs(torch, synthetic, run_slam_cli.render_all, tracking, fast_mod, image)
     with phase("fast_score vs plain"):
-        fast = check_fast(torch, kfast, gen, flush)
+        fast = check_fast(torch, kfast, gen, flush, path)
     with phase("gather_aligned_patches vs plain"):
-        patches = check_patches(torch, kpatch, gen, flush)
+        patches = check_patches(torch, kpatch, gen, flush, path)
+    del path
     with phase("gather_patches vs plain"):
         gather = check_gather(torch, kgather, gen, flush)
     del flush
@@ -579,32 +689,43 @@ def main() -> int:
             + " ".join(f"{k}={v:.3f}" for k, v in split.items())
             + f"; SLAM loop {1e3 * run['backend_s'] / MAIN_FRAMES:.2f} ms/frame (cold, host clock)")
 
-    with phase("dynamic path: run-slam --dynamic --semantics gt + evaluate"), \
-            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        reset_counts()
-        run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
-            "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--dynamic", "--semantics", "gt"])
-        counts = read_counts()
-        ate = res["ate"]["rmse"]
-        chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
-        log(f"  frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} fps={run['fps']} "
-            f"ate_rmse_m={ate:.5f} (bound {DYNAMIC_ATE_BOUND_M}) keyframes={run['keyframes']} "
-            f"launches={counts}")
-        if not (ate == ate and ate < DYNAMIC_ATE_BOUND_M):
-            raise AssertionError(f"dynamic ATE {ate} is not finite and below {DYNAMIC_ATE_BOUND_M} m")
-        for name in ("fast_score", "gather_aligned_patches"):
-            if counts[name] < 4 * chunks:
-                raise AssertionError(f"{name} launched {counts[name]} times on the dynamic path")
+    with phase(f"dynamic path: run-slam --dynamic --seed {DYNAMIC_SEED}, --semantics gt and off, + evaluate"):
+        ates = {}
+        for semantics in ("gt", "off"):
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                reset_counts()
+                run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
+                    "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--dynamic", "--semantics",
+                    semantics], seed=DYNAMIC_SEED)
+                counts = read_counts()
+            ates[semantics] = ate = res["ate"]["rmse"]
+            chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
+            log(f"  --semantics {semantics}: frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} "
+                f"fps={run['fps']} ate_rmse_m={ate:.5f} keyframes={run['keyframes']} launches={counts}")
+            for name in ("fast_score", "gather_aligned_patches"):
+                if counts[name] < 4 * chunks:
+                    raise AssertionError(f"{name} launched {counts[name]} times on the dynamic path")
+        log(f"  dynamic ATE seed {DYNAMIC_SEED}: gt {ates['gt']:.5f} m (bound < {DYNAMIC_ATE_BOUND_M}), "
+            f"off {ates['off']:.5f} m (bound > {DYNAMIC_OFF_ATE_FLOOR_M})")
+        if not (ates["gt"] == ates["gt"] and ates["gt"] < DYNAMIC_ATE_BOUND_M):
+            raise AssertionError(f"dynamic ATE with gt semantics {ates['gt']} is not finite and below "
+                                 f"{DYNAMIC_ATE_BOUND_M} m")
+        if not ates["off"] > DYNAMIC_OFF_ATE_FLOOR_M:
+            raise AssertionError(f"dynamic ATE without semantics {ates['off']} m is not above "
+                                 f"{DYNAMIC_OFF_ATE_FLOOR_M} m: the paired CPU runs' failure did not reproduce")
 
     kernels = []
     for name, src, replaces, r, timed_as in (
         ("fast_score", "semantic_slam_master_tpu_torch/csrc/fast_score.cu",
          "semantic_slam_master_tpu/ops/pallas/fast_score.py:102", fast,
-         "sum of the four pyramid levels of one 16-frame frontend chunk"),
+         "sum of the four pyramid levels of one 16-frame frontend chunk of the rendered world at "
+         "threshold 0.05; bound: bytes, or the 4-point test on every pixel plus the 16-point chain on "
+         "the pass_share that passes it, at the f32 issue rate"),
         ("gather_aligned_patches", "semantic_slam_master_tpu_torch/csrc/aligned_patches.cu",
          "semantic_slam_master_tpu/ops/pallas/patches.py:206", patches,
-         "sum of the four pyramid levels of one 16-frame frontend chunk; library_ms is one "
-         "torch.gather over the precomputed index, the gather alone (no quantisation, f32 out)"),
+         "sum of the four pyramid levels of one 16-frame frontend chunk of the rendered world (blurred "
+         "levels, the path's detections); library_ms is one torch.gather over the precomputed index, "
+         "the gather alone (no quantisation, f32 out)"),
         ("gather_patches", "semantic_slam_master_tpu_torch/csrc/gather_patches.cu",
          "semantic_slam_master_tpu/ops/pallas/patches.py:64", gather,
          "one 8-frame learned chunk: 8x500 windows of 21x21 from 480x640; library_ms is one "
@@ -616,6 +737,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r.get("library_ms"), "status": "checked", "timed_as": timed_as,
+            **{k: r[k] for k in ("random_ms", "pass_share", "old_bound_ms") if k in r},
         })
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke total {time.perf_counter() - T_START:.2f} s")

@@ -58,6 +58,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from semantic_slam_master_tpu_torch.cli import run_slam_cli as cli
+    from semantic_slam_master_tpu_torch.core import prng
     from semantic_slam_master_tpu_torch.data import synthetic
     from semantic_slam_master_tpu_torch.slam import system
 
@@ -70,6 +71,8 @@ def main() -> int:
     seq = synthetic.make_sequence(num_frames=args.frames, scale=1.0)
     rgb, gray, depth, _ = cli.render_all(seq)
     cfg = system.SlamConfig()
+    # The run-slam CLI's RANSAC draws: JAX's own for --seed.
+    uniforms = torch.from_numpy(prng.slam_uniforms(args.seed, args.frames, cfg.num_hypotheses)).to(dev)
     load_args = argparse.Namespace(seed=args.seed, train_config=args.train_config, checkpoint=None,
                                    segmenter_checkpoint=None)
     segmenter = cli.load_segmenter(load_args, dev) if args.semantics == "model" else None
@@ -86,7 +89,7 @@ def main() -> int:
         feats = frontend()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = system.run_slam(torch.Generator().manual_seed(args.seed), feats, seq.cam, cfg)
+        out = system.run_slam(uniforms, feats, seq.cam, cfg)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         return (t1 - t0) * 1e3, (t2 - t1) * 1e3, int(out.is_keyframe.sum())
@@ -99,8 +102,7 @@ def main() -> int:
     feats = frontend()
     for name, fn in (
         ("frontend", frontend),
-        ("backend", lambda: system.run_slam(
-            torch.Generator().manual_seed(args.seed), feats, seq.cam, cfg)),
+        ("backend", lambda: system.run_slam(uniforms, feats, seq.cam, cfg)),
     ):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -1,7 +1,11 @@
-"""ATE/RPE trajectory evaluation (port of ``evaluate``, without plots).
+"""ATE/RPE trajectory evaluation (port of ``evaluate``).
 
 Reads ``<sequence>_trajectory.txt`` files and their ground truth, computes
-ATE (Umeyama, no scale) and RPE, and writes ``results.json``.
+ATE (Umeyama, no scale) and RPE, and writes ``results.json``. A sequence
+that fails (an unreadable file, too few matched timestamps) is recorded
+as ``{"status": "error", "error": ...}`` and the others are still scored.
+The JAX CLI's ``--plots`` is not ported yet: it waits for the port of
+``viz/``, and no plots are written.
 """
 
 from __future__ import annotations
@@ -47,11 +51,14 @@ def main(argv=None):
         if gt_file is None:
             results[seq] = {"status": "missing_groundtruth"}
             continue
-        t_est, p_est = trajectory_io.read_tum_trajectory(traj_file)
-        t_gt, p_gt = trajectory_io.read_tum_trajectory(gt_file)
-        results[seq] = ate_rpe.evaluate_trajectory(
-            t_gt, p_gt, t_est, p_est, rpe_delta=args.rpe_delta, max_diff=args.max_diff
-        )
+        try:
+            t_est, p_est = trajectory_io.read_tum_trajectory(traj_file)
+            t_gt, p_gt = trajectory_io.read_tum_trajectory(gt_file)
+            results[seq] = ate_rpe.evaluate_trajectory(
+                t_gt, p_gt, t_est, p_est, rpe_delta=args.rpe_delta, max_diff=args.max_diff
+            )
+        except Exception as e:  # per-sequence failure tolerance, as the JAX CLI
+            results[seq] = {"status": "error", "error": str(e)}
 
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(results, indent=2))

@@ -11,8 +11,13 @@ SLAM loop, on ``--device`` (default ``cuda``), and writes
 ``evaluate``, and the run's stage times and counts as ``<name>_run.json``.
 
 ``--checkpoint`` and ``--segmenter-checkpoint`` take ``.npz`` files of
-flax variables keyed by their flattened path (``convert.py``); without
-them the models get weights seeded from ``--seed`` and a warning.
+flax variables keyed by their flattened path (``convert.py``). Without
+them the models get seeded weights and a warning, seeded by the JAX
+CLI's rule (the segmenter from a fixed seed 0, the learned frontend from
+the train config's ``training.seed``; ``--seed`` seeds neither), but
+drawn by PyTorch's generator, so they are not JAX's numbers. ``--seed``
+seeds the RANSAC draws, which are JAX's own for the same seed
+(``core/prng.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..core import prng
 from ..core.device import resolve_device
 from ..data import synthetic, trajectory_io
 from ..models import segmenter as seg_mod
@@ -119,26 +125,34 @@ def _warn(msg: str) -> None:
     print(f"[run-slam] {msg}", file=sys.stderr)
 
 
+# The JAX CLI initialises an untrained segmenter from PRNGKey(0), whatever --seed is.
+SEGMENTER_SEED = 0
+
+
 def load_segmenter(args, device) -> seg_mod.SemanticSegmenter:
-    gen = torch.Generator().manual_seed(args.seed)
+    gen = torch.Generator().manual_seed(SEGMENTER_SEED)
     model = seg_mod.SemanticSegmenter(generator=gen)
     if args.segmenter_checkpoint:
         model.load_state_dict(convert.segmenter_state_dict(args.segmenter_checkpoint))
     else:
         _warn(f"--semantics model without --segmenter-checkpoint: weights seeded from "
-              f"--seed {args.seed} (labels will be noise)")
+              f"{SEGMENTER_SEED} as the JAX CLI seeds them, but drawn by PyTorch, not JAX's "
+              f"numbers (labels will be noise)")
     return model.to(device).eval()
 
 
 def load_learned_frontend(args, device):
     """The ``LearnedFrontend`` of ``--train-config`` (default: the JAX
-    package's ``ModelConfig``), with ``--checkpoint`` weights or seeded ones."""
+    package's ``ModelConfig``), with ``--checkpoint`` weights or ones seeded
+    from the config's ``training.seed``, as the JAX trainer seeds them."""
     cfg = config_mod.load_model_config(args.train_config) if args.train_config else config_mod.ModelConfig()
-    model = config_mod.build_model(cfg, generator=torch.Generator().manual_seed(args.seed))
+    seed = config_mod.load_training_seed(args.train_config)
+    model = config_mod.build_model(cfg, generator=torch.Generator().manual_seed(seed))
     if args.checkpoint:
         model.load_state_dict(convert.frontend_state_dict(args.checkpoint))
     else:
-        _warn(f"--frontend learned without --checkpoint: weights seeded from --seed {args.seed}")
+        _warn(f"--frontend learned without --checkpoint: weights seeded from training.seed {seed} "
+              f"as the JAX trainer seeds them, but drawn by PyTorch, not JAX's numbers")
     return model.to(device).eval()
 
 
@@ -189,9 +203,11 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
         window_size=args.window_size,
         ba_iters=args.ba_iters,
     )
-    gen = torch.Generator().manual_seed(args.seed)
+    # The JAX run_slam's RANSAC draws for PRNGKey(--seed), so a run pairs
+    # with the JAX package's run of the same seed.
+    uniforms = torch.from_numpy(prng.slam_uniforms(args.seed, len(seq), cfg.num_hypotheses)).to(device)
     t1 = time.perf_counter()
-    out = system.run_slam(gen, feats, seq.cam, cfg)
+    out = system.run_slam(uniforms, feats, seq.cam, cfg)
     poses = out.poses_wc.cpu().numpy().astype(np.float64)
     t_backend = time.perf_counter() - t1
     t_slam = t_segmenter + t_frontend + t_backend
@@ -230,20 +246,24 @@ def main(argv=None):
     parser.add_argument("--semantics", choices=("off", "gt", "model"), default="off",
                         help="semantic residual weighting: GT labels or the SemanticSegmenter")
     parser.add_argument("--segmenter-checkpoint", default=None,
-                        help=".npz of flax segmenter params for --semantics model")
+                        help=".npz of flax segmenter params for --semantics model (without it: "
+                             "weights seeded from 0, as the JAX CLI does, drawn by PyTorch)")
     parser.add_argument("--frontend", choices=("orb", "learned"), default="orb",
                         help="classic ORB (Hamming) or the LearnedFrontend (cosine)")
     parser.add_argument("--train-config", default=None,
                         help="training YAML whose model: section sizes --frontend learned")
     parser.add_argument("--checkpoint", default=None,
-                        help=".npz of flax LearnedFrontend variables for --frontend learned")
+                        help=".npz of flax LearnedFrontend variables for --frontend learned (without "
+                             "it: weights seeded from the config's training.seed, drawn by PyTorch)")
     parser.add_argument("--output-dir", default="experiments/trajectories")
     parser.add_argument("--num-keypoints", type=int, default=512,
                         help="ORB keypoints per frame (the learned frontend takes its config's)")
     parser.add_argument("--num-landmarks", type=int, default=2048)
     parser.add_argument("--window-size", type=int, default=5)
     parser.add_argument("--ba-iters", type=int, default=4)
-    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the RANSAC draws (JAX's own for the same seed); seeded "
+                             "weights follow the JAX CLI's rule instead: see the description")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = parser.parse_args(argv)
 

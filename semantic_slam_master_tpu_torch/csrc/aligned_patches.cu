@@ -12,13 +12,20 @@
 // as bf16 (integers <= 255 are exact there), ready for the bf16 all-bin
 // descriptor product.
 //
-// Bound on the H100: memory, and latency of scattered reads. Per keypoint
-// it reads 4 KB (32 rows of 32 f32) and writes 2 KB; there is no
-// arithmetic to speak of. The TPU kernel needed 8/128-aligned DMA
-// supersets and an in-VMEM roll; here a direct gather has no alignment
-// rule, so each warp reads one 32-pixel patch row (128 contiguous bytes,
-// coalesced) and writes one 64-byte bf16 row. One 256-thread block serves
-// one keypoint: 8 warps x 4 rows.
+// Bound on the H100: memory. Per keypoint it reads 4 KB (32 rows of 32
+// f32, shared in part with its neighbours) and writes 2 KB; there is no
+// arithmetic to speak of. What sets the time at the path's few thousand
+// keypoints per launch is latency: the xy load, then the rows. The TPU
+// kernel needed 8/128-aligned DMA supersets and an in-VMEM roll; on the
+// card a gather has no alignment rule. The design:
+// - one warp per keypoint, 8 keypoints per 256-thread block (the path's
+//   largest launch, 16 x 202 keypoints, is 404 blocks, fewer than the
+//   card holds at once);
+// - lane c reads column c of all 32 rows into registers (32 independent
+//   loads in flight, each warp-wide load one coalesced 128-byte row), then
+//   quantises;
+// - the bf16 patch goes through 2 KB of shared memory per warp so that
+//   each lane writes it with four 16-byte stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -27,39 +34,53 @@ namespace {
 
 constexpr int kPatch = 32;
 constexpr int kRadius = 15;
-constexpr int kThreads = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStagePitch = kPatch + 8;  // bf16 per staged row: 80 bytes, 16-byte aligned
 
-__global__ void aligned_patches_kernel(const float* __restrict__ img,
-                                       const float* __restrict__ xy,
-                                       __nv_bfloat16* __restrict__ out, int N,
-                                       int H, int W) {
-  const int kp = blockIdx.x;  // b * N + n
-  const int b = kp / N;
-  const float fx = rintf(xy[2 * (size_t)kp]);
-  const float fy = rintf(xy[2 * (size_t)kp + 1]);
-  const int cx = (int)fminf(fmaxf(fx, (float)kRadius), (float)(W - 18));
-  const int cy = (int)fminf(fmaxf(fy, (float)kRadius), (float)(H - 17));
-  const float* src =
-      img + (size_t)b * H * W + (size_t)(cy - kRadius) * W + (cx - kRadius);
-  __nv_bfloat16* dst = out + (size_t)kp * kPatch * kPatch;
+__device__ __forceinline__ float quantize(float v) {
+  return rintf(fminf(fmaxf(v, 0.0f), 1.0f) * 255.0f);
+}
 
+// Clamped top-left corner (x, y) of keypoint xy's patch.
+__device__ __forceinline__ int2 corner(float2 xy, int H, int W) {
+  const int cx = (int)fminf(fmaxf(rintf(xy.x), (float)kRadius), (float)(W - 18));
+  const int cy = (int)fminf(fmaxf(rintf(xy.y), (float)kRadius), (float)(H - 17));
+  return make_int2(cx - kRadius, cy - kRadius);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    aligned_patches_kernel(const float* __restrict__ img, const float2* __restrict__ xy,
+                           __nv_bfloat16* __restrict__ out, int total, int N, int H, int W) {
+  __shared__ __align__(16) __nv_bfloat16 stage[kWarps][kPatch * kStagePitch];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int kp = blockIdx.x * kWarps + warp;  // b * N + n
+  if (kp >= total) return;
+  __nv_bfloat16* st = stage[warp];
+  const int2 o = corner(__ldg(xy + kp), H, W);
+  const float* src = img + (size_t)(kp / N) * H * W + (size_t)o.y * W + o.x + lane;
+  float v[kPatch];
 #pragma unroll
-  for (int r = warp; r < kPatch; r += kThreads / 32) {
-    const float v = src[(size_t)r * W + lane];
-    const float q = rintf(fminf(fmaxf(v, 0.0f), 1.0f) * 255.0f);
-    dst[r * kPatch + lane] = __float2bfloat16_rn(q);
+  for (int r = 0; r < kPatch; ++r) v[r] = __ldg(src + (size_t)r * W);
+#pragma unroll
+  for (int r = 0; r < kPatch; ++r) st[r * kStagePitch + lane] = __float2bfloat16_rn(quantize(v[r]));
+  __syncwarp();
+  uint4* dst = reinterpret_cast<uint4*>(out + (size_t)kp * kPatch * kPatch);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = lane + 32 * k;  // 16-byte piece i: row i / 4, columns 8 * (i % 4) ...
+    dst[i] = *reinterpret_cast<const uint4*>(st + (i >> 2) * kStagePitch + 8 * (i & 3));
   }
 }
 
 }  // namespace
 
-extern "C" int semslam_aligned_patches(const void* img, const void* xy,
-                                       void* out, int B, int N, int H, int W,
-                                       void* stream) {
+extern "C" int semslam_aligned_patches(const void* img, const void* xy, void* out, int B, int N, int H,
+                                       int W, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  aligned_patches_kernel<<<B * N, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)img, (const float*)xy, (__nv_bfloat16*)out, N, H, W);
+  const int total = B * N;
+  aligned_patches_kernel<<<(total + kWarps - 1) / kWarps, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)img, (const float2*)xy, (__nv_bfloat16*)out, total, N, H, W);
   return (int)cudaGetLastError();
 }

@@ -60,9 +60,17 @@ def build(force: bool = False) -> float:
     """Compile the library if stale (or ``force``); returns seconds spent."""
     if not force and not is_stale():
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    return compile_library(sources(), LIB_PATH)
+
+
+def compile_library(srcs, lib_path: Path, extra_flags=(), verbose: bool = False) -> float:
+    """One ``nvcc`` call: ``srcs`` into the shared library ``lib_path``;
+    returns seconds spent. ``verbose`` prints what nvcc wrote to stderr
+    (with ``extra_flags=["-Xptxas", "-v"]``: registers and shared memory
+    of each kernel)."""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, srcs)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -70,7 +78,9 @@ def build(force: bool = False) -> float:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
-    os.replace(tmp, LIB_PATH)
+    if verbose and proc.stderr:
+        print(proc.stderr, flush=True)
+    os.replace(tmp, lib_path)
     return time.perf_counter() - t0
 
 
@@ -78,8 +88,15 @@ def build(force: bool = False) -> float:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     build()
-    lib = ctypes.CDLL(str(LIB_PATH))
+    return load(LIB_PATH)
+
+
+def load(lib_path: Path) -> ctypes.CDLL:
+    """A kernel library with the argument types of every launcher it has."""
+    lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -3,7 +3,8 @@
 Counterpart of the TPU kernel ``ops/pallas/fast_score.py::
 fast_score_pallas``; the kernel is ``csrc/fast_score.cu``. Both versions
 read neighbours outside the frame as 0 and accumulate the margins in
-circle order, so on the card they agree bit for bit.
+circle order, so on the card they agree bit for bit. ``fast_candidates_plain``
+states the kernel's 4-point early test in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -48,6 +49,23 @@ def fast_score_plain(gray: torch.Tensor, threshold: float = 0.08) -> torch.Tenso
     zero = torch.zeros_like(gray)
     score = torch.where(is_b, bright, zero) + torch.where(is_d, dark, zero)
     return torch.where(is_b | is_d, score, zero)
+
+
+def fast_candidates_plain(gray: torch.Tensor, threshold: float = 0.08) -> torch.Tensor:
+    """(B, H, W) bool: the pixels that pass the kernel's 4-point test, in
+    plain PyTorch. Any arc of 9 of the 16 circle points holds two
+    circularly adjacent compass points (circle indices 0, 4, 8, 12) of its
+    polarity, so a pixel outside this mask has a response of exactly 0 and
+    the kernel skips its 16-point chain."""
+    B, H, W = gray.shape
+    r = BORDER_MARGIN
+    padded = F.pad(gray, (r, r, r, r))
+    diffs = [padded[:, r + dy : r + dy + H, r + dx : r + dx + W] - gray for dy, dx in FAST_CIRCLE[::4]]
+
+    def adjacent_pair(bits):  # (b0 & b4) | (b4 & b8) | (b8 & b12) | (b12 & b0)
+        return (bits[0] | bits[2]) & (bits[1] | bits[3])
+
+    return adjacent_pair([d > threshold for d in diffs]) | adjacent_pair([d < -threshold for d in diffs])
 
 
 def _check(gray: torch.Tensor) -> None:

@@ -70,6 +70,8 @@ def gather_aligned_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 
     img = img.contiguous()
     xy = xy.contiguous()
+    if xy.data_ptr() % 8:  # the kernel reads each keypoint's xy as one float2
+        xy = xy.clone()
     B, H, W = img.shape
     N = xy.shape[1]
     out = torch.empty((B, N, PATCH, PATCH), dtype=torch.bfloat16, device=img.device)

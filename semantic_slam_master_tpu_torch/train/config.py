@@ -1,5 +1,6 @@
 """The ``model:`` section of a training YAML (port of the model part of
-``train/config.py``) and ``build_model`` (``train/trainer.py``).
+``train/config.py``), its ``training.seed``, and ``build_model``
+(``train/trainer.py``).
 
 The YAML is read with PyYAML's ``safe_load``, as the JAX loader reads it
 (PyYAML is a dependency of the project, and the card's machine has it).
@@ -45,6 +46,16 @@ def load_model_config(path) -> ModelConfig:
     if unknown:
         warnings.warn(f"{path}: ignoring unknown model keys {unknown}")
     return ModelConfig(**{k: v for k, v in raw.items() if k in known})
+
+
+def load_training_seed(path=None) -> int:
+    """``training.seed`` of a training YAML (0, the JAX ``TrainingConfig``
+    default, without one): the seed the JAX trainer initialises the
+    frontend's weights from."""
+    if path is None:
+        return 0
+    raw = (yaml.safe_load(Path(path).read_text()) or {}).get("training") or {}
+    return int(raw.get("seed", 0))
 
 
 def build_model(m: ModelConfig, dtype=torch.bfloat16, device=None,

@@ -23,7 +23,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(2, 480, 640), (2, 83, 300), (1, 7, 5)])
+# Shapes on and off the kernel's 128 x 16 tile: exact multiples, ragged
+# heights and widths, widths no multiple of 4 (no 16-byte rows), B = 1.
+FAST_SHAPES = [(2, 480, 640), (2, 83, 300), (1, 7, 5), (1, 64, 128), (1, 37, 129), (3, 33, 257), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", FAST_SHAPES)
 def test_fast_score_kernel_matches_plain(cuda, shape):
     img = torch.rand(shape, generator=torch.Generator().manual_seed(0)).to(cuda)
     got = kfast.fast_score(img, 0.05)
@@ -31,9 +36,23 @@ def test_fast_score_kernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert torch.equal(got > 0, ref > 0)
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+    assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("shape,n", [((2, 480, 640), 202), ((1, 59, 300), 37), ((3, 32, 33), 5)])
+@pytest.mark.parametrize("shape", [(2, 480, 640), (1, 37, 129), (3, 83, 300)])
+def test_fast_score_smooth_and_noise_match_plain(cuda, shape):
+    """Bit-exact on smooth texture, where few pixels pass the 4-point test
+    and whole warps skip the 16-point chain, and on noise, where most do."""
+    gen = torch.Generator().manual_seed(4)
+    B, H, W = shape
+    smooth = torch.nn.functional.interpolate(torch.rand((B, 1, H // 8 + 1, W // 8 + 1), generator=gen),
+                                             size=(H, W), mode="bilinear")[:, 0].contiguous()
+    for img in (smooth.to(cuda), torch.rand(shape, generator=gen).to(cuda)):
+        assert torch.equal(kfast.fast_score(img, 0.05), kfast.fast_score_plain(img, 0.05))
+
+
+@pytest.mark.parametrize("shape,n", [((2, 480, 640), 202), ((1, 59, 300), 37), ((3, 32, 33), 5),
+                                     ((1, 32, 33), 1), ((1, 480, 640), 1), ((16, 280, 384), 70)])
 def test_patch_kernel_matches_plain(cuda, shape, n):
     B, H, W = shape
     gen = torch.Generator().manual_seed(1)

@@ -163,7 +163,8 @@ def test_cli_learned_frontend_with_segmenter(tmp_path, capsys):
     name, r = _run_cli(tmp_path, "--frontend", "learned", "--train-config", "configs/train_tiny_synthetic.yaml",
                        "--semantics", "model")
     out = capsys.readouterr()
-    assert "weights seeded from --seed 0" in out.err
+    assert "weights seeded from training.seed 0" in out.err  # the tiny config's seed
+    assert "weights seeded from 0 as the JAX CLI seeds them" in out.err
     assert "'frontend': 'learned'" in out.out and "'finite_poses': True" in out.out
     assert r["status"] == "success" and np.isfinite(r["ate"]["rmse"])
 
