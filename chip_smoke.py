@@ -17,7 +17,8 @@ device synchronised at the end of each):
    clamp edge) and on the path's own inputs, where every pixel failing
    the 4-point test must score 0; gather_patches in both modes (the
    learned path's 8x500 windows of radius 10, the padded 32x32 mode at
-   N=8192, and ragged cases with N % 8 != 0 and border centres). Each is
+   N=8192, ragged cases with B N % 4 != 0, N = 1, centres on every clamp
+   edge and non-finite or huge centres). Each is
    timed with CUDA events (median of 20 launches after warm-up, L2
    flushed between launches, host enqueue time hidden behind a device
    spin) beside its bound, the plain version's time and, for the gathers,
@@ -121,15 +122,26 @@ DYNAMIC_ATE_BOUND_M = 0.05
 DYNAMIC_OFF_ATE_FLOOR_M = 0.5
 DYNAMIC_SEED = 1
 LEARNED_CONFIG = "configs/train_vits_synthetic_long.yaml"
-# gather_patches cases: (wrapper, (B, H, W), N, radius). The first is the
-# learned path's call per 8-frame chunk (500 keypoints, 21x21 windows);
-# the kernels line reports it.
+# gather_patches cases: (wrapper, (B, H, W), N, radius, centres). The first
+# is the learned path's call per 8-frame chunk (500 keypoints on distinct
+# cells of the 30x40 patch grid, 21x21 windows); the kernels line reports
+# it. "random" centres fall in and around the frame, with keypoints on
+# every clamp edge; "nonfinite" ones are +-inf, NaN and +-3e9 in x, y or
+# both. B N = 111 is a multiple neither of the kernel's 8 keypoints per
+# block nor of 4 (a ragged last block); N = 1 is one warp.
 GATHER_CASES = [
-    ("gather_patches", (8, 480, 640), 500, 10),
-    ("gather_patches_padded", (1, 480, 640), 8192, 15),
-    ("gather_patches", (2, 83, 300), 37, 10),
-    ("gather_patches_padded", (2, 83, 300), 37, 15),
+    ("gather_patches", (8, 480, 640), 500, 10, "grid"),
+    ("gather_patches_padded", (1, 480, 640), 8192, 15, "random"),
+    ("gather_patches", (2, 83, 300), 37, 10, "random"),
+    ("gather_patches_padded", (2, 83, 300), 37, 15, "random"),
+    ("gather_patches", (3, 83, 300), 37, 10, "random"),
+    ("gather_patches_padded", (3, 83, 300), 37, 15, "random"),
+    ("gather_patches", (1, 480, 640), 1, 10, "random"),
+    ("gather_patches_padded", (1, 480, 640), 1, 15, "random"),
+    ("gather_patches", (2, 83, 300), 37, 10, "nonfinite"),
+    ("gather_patches_padded", (2, 83, 300), 37, 15, "nonfinite"),
 ]
+EXTREME_COORDS = [float("inf"), float("-inf"), float("nan"), 3e9, -3e9]
 
 FAST_SHAPES = [(16, 480, 640), (16, 400, 544), (16, 336, 448), (16, 280, 384)]
 # Ragged: heights and widths no multiple of the kernel's 128 x 16 tile, a
@@ -356,25 +368,41 @@ def check_patches(torch, kpatch, gen, flush, path) -> dict:
     return dict(totals["path"], max_abs_err=max_err, random_ms=totals["random"]["ms"])
 
 
+def grid_centres(torch, gen, B: int, H: int, W: int, N: int):
+    """(B, N, 2) centres of N distinct cells of the 16-pixel patch grid per
+    frame, as the learned path's top-k over the saliency grid gives them."""
+    cells = torch.stack([torch.randperm((H // 16) * (W // 16), generator=gen, device="cuda")[:N]
+                         for _ in range(B)])
+    return torch.stack([cells % (W // 16), cells // (W // 16)], -1).float() * 16 + 8
+
+
+def gather_centres(torch, gen, kind: str, B: int, H: int, W: int, N: int, radius: int, side: int):
+    """Centres of one GATHER_CASES case (see there)."""
+    if kind == "grid":
+        return grid_centres(torch, gen, B, H, W, N)
+    xy = torch.rand((B, N, 2), generator=gen, device="cuda")
+    xy = xy * torch.tensor([W + 40.0, H + 40.0], device="cuda") - 20.0
+    if kind == "random":
+        edges = [[0.0, 0.0], [W - 1.0, H - 1.0], [radius + 0.5, radius - 0.5],
+                 [W - side + radius + 0.5, H - side + radius + 0.5], [-3.0, H + 3.0]]
+    else:
+        mid_x, mid_y = W / 2, H / 2
+        edges = [p for v in EXTREME_COORDS for p in ([v, mid_y], [mid_x, v], [v, v])]
+        edges += [[u, v] for u in EXTREME_COORDS for v in EXTREME_COORDS if u is not v][:N - len(edges)]
+    edges = torch.tensor(edges[:N], device="cuda")
+    xy[:, : len(edges)] = edges
+    return xy
+
+
 def check_gather(torch, kgather, gen, flush) -> dict:
     """gather_patches in both modes against its plain version, bit-exact;
     the first case (the learned path's shape) is timed for the kernels
     line."""
     report = {"max_abs_err": 0.0}
-    for i, (wrapper, (B, H, W), N, radius) in enumerate(GATHER_CASES):
+    for i, (wrapper, (B, H, W), N, radius, kind) in enumerate(GATHER_CASES):
         side = 2 * radius + 1 if wrapper == "gather_patches" else kgather.PADDED_SIDE
         img = torch.randn((B, H, W), generator=gen, device="cuda")
-        if i == 0:  # distinct patch-centre pixels of the 30x40 grid, as the learned path's top-k gives
-            cells = torch.stack([torch.randperm((H // 16) * (W // 16), generator=gen, device="cuda")[:N]
-                                 for _ in range(B)])
-            xy = torch.stack([cells % (W // 16), cells // (W // 16)], -1).float() * 16 + 8
-        else:
-            xy = torch.rand((B, N, 2), generator=gen, device="cuda")
-            xy = xy * torch.tensor([W + 40.0, H + 40.0], device="cuda") - 20.0
-            edges = torch.tensor([[0.0, 0.0], [W - 1.0, H - 1.0], [radius + 0.5, radius - 0.5],
-                                  [W - side + radius + 0.5, H - side + radius + 0.5], [-3.0, H + 3.0]],
-                                 device="cuda")
-            xy[:, : len(edges)] = edges
+        xy = gather_centres(torch, gen, kind, B, H, W, N, radius, side)
         fn = getattr(kgather, wrapper)
         got = fn(img, xy, radius)
         ref = kgather.gather_patches_reference(img, xy, radius, side)
@@ -383,7 +411,7 @@ def check_gather(torch, kgather, gen, flush) -> dict:
             raise AssertionError(f"{wrapper} {(B, H, W, N)}: {got.dtype} {tuple(got.shape)}")
         err = (got - ref).abs().max().item()
         if not torch.equal(got, ref):
-            raise AssertionError(f"{wrapper} {(B, H, W, N, radius)}: kernel != plain (max err {err})")
+            raise AssertionError(f"{wrapper} {(B, H, W, N, radius)} {kind}: kernel != plain (max err {err})")
         report["max_abs_err"] = max(report["max_abs_err"], err)
         ms = median_ms(lambda: fn(img, xy, radius), TIMED_ITERS, WARMUP_ITERS, flush)
         plain_ms = median_ms(lambda: kgather.gather_patches_reference(img, xy, radius, side),
@@ -397,7 +425,7 @@ def check_gather(torch, kgather, gen, flush) -> dict:
         n_read = unique_pixels(idx, H * W)
         nbytes = n_read * 4 + B * N * (8 + side * side * 4)
         b_ms, b_by = bound(nbytes, 0.0)
-        log(f"  {wrapper} {(B, H, W)} N={N} r={radius}: exact=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        log(f"  {wrapper} {(B, H, W)} N={N} r={radius} {kind}: exact=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.3f} "
             f"distinct_pixels_read={n_read} window_pixels={B * N * side * side}")
         if i == 0:

@@ -2,11 +2,33 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 NEG_INF = -1e30
+
+
+def round_clip_xy(xy: torch.Tensor, lo: Tuple[int, int], hi: Tuple[int, int]) -> torch.Tensor:
+    """``jnp.clip(jnp.round(xy).astype(jnp.int32), lo, hi)`` as XLA computes
+    it, on (..., 2) coordinates with per-axis bounds ``lo = (x_lo, y_lo)``,
+    ``hi = (x_hi, y_hi)``, as int64: round half to even, NaN to 0, then
+    clamp. XLA's float-to-int32 conversion saturates, so +inf and values
+    past the int32 range land on the high bound and -inf on the low one; a
+    cast before the clamp would send +inf to the low bound on the CPU. Here
+    the clamp runs in float, before the cast, as the CUDA kernels do: four
+    elementwise launches for x and y together."""
+    lo_t, hi_t = _bounds(tuple(lo), tuple(hi), xy.dtype, xy.device)
+    v = torch.nan_to_num(torch.round(xy), nan=0.0)
+    return torch.clamp(v, lo_t, hi_t).to(torch.int64)
+
+
+@functools.lru_cache(maxsize=64)
+def _bounds(lo, hi, dtype, device):
+    """(2,) bound tensors on ``device``, made once per frame size: a fresh
+    host-to-device copy would wait for the stream at every call."""
+    return torch.tensor(lo, dtype=dtype, device=device), torch.tensor(hi, dtype=dtype, device=device)
 
 
 def masked_topk(

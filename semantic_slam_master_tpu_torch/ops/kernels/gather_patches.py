@@ -1,9 +1,10 @@
 """Square keypoint patch gather: CUDA kernel wrapper and its plain version.
 
-Counterpart of the TPU kernel ``ops/pallas/patches.py::
-gather_patches_pallas`` and of the XLA gather it is the twin of,
-``ops/sampling.py::gather_patches``; the kernel is
-``csrc/gather_patches.cu``. Two wrappers share it:
+Counterpart of the JAX package's XLA gather ``ops/sampling.py::
+gather_patches`` (the learned frontend's sub-patch refinement) and of its
+Pallas twin ``ops/pallas/patches.py::gather_patches_pallas``, which no JAX
+path calls; the kernel is ``csrc/gather_patches.cu``. Two wrappers share
+it:
 
 - ``gather_patches(img, centers, radius)``: (B, N, 2r+1, 2r+1) windows at
   the rounded centres, clamped to [r, W-1-r] x [r, H-1-r] (the learned
@@ -20,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ...core.fixed import round_clip_xy
+
 PADDED_SIDE = 32
 
 
@@ -33,10 +36,11 @@ def window_bounds(img: torch.Tensor, radius: int, side: int):
 def window_index(centers, W: int, radius: int, side: int, x_lo, x_hi, y_lo, y_hi) -> torch.Tensor:
     """(B, N, 2) centres -> (B, N * side * side) flat pixel indices of the
     windows with their top-left corner at (cx - r, cy - r) in a frame of
-    width W. ``torch.round`` rounds half to even, as ``jnp.round``."""
+    width W. Centres round half to even and clamp as in JAX, non-finite
+    ones included (``round_clip_xy``)."""
     B, N = centers.shape[:2]
-    cx = torch.clamp(torch.round(centers[..., 0]).to(torch.int64), x_lo, x_hi)
-    cy = torch.clamp(torch.round(centers[..., 1]).to(torch.int64), y_lo, y_hi)
+    c = round_clip_xy(centers, (x_lo, y_lo), (x_hi, y_hi))
+    cx, cy = c[..., 0], c[..., 1]
     d = torch.arange(side, device=centers.device) - radius
     rows = (cy[..., None, None] + d[:, None]) * W  # (B, N, side, 1)
     return (rows + cx[..., None, None] + d[None, :]).reshape(B, N * side * side)

@@ -13,16 +13,17 @@ from __future__ import annotations
 
 import torch
 
+from ...core.fixed import round_clip_xy
+
 PATCH = 32
 RADIUS = 15
 
 
 def patch_centers(xy: torch.Tensor, H: int, W: int):
     """Clamped integer patch centres: cx in [15, W-18], cy in [15, H-17]
-    (``ops/orb.py::_patch_centers``)."""
-    cx = torch.clamp(torch.round(xy[..., 0]).to(torch.int64), RADIUS, W - 18)
-    cy = torch.clamp(torch.round(xy[..., 1]).to(torch.int64), RADIUS, H - 17)
-    return cx, cy
+    (``ops/orb.py::_patch_centers``, non-finite xy included)."""
+    c = round_clip_xy(xy, (RADIUS, RADIUS), (W - 18, H - 17))
+    return c[..., 0], c[..., 1]
 
 
 def quantize_u8(img: torch.Tensor) -> torch.Tensor:

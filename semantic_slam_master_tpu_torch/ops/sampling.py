@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.fixed import round_clip_xy
 from .kernels.gather_patches import gather_patches  # noqa: F401  (re-exported)
 
 
@@ -36,14 +37,14 @@ def bilinear_sample(grid: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 def nearest_sample(grid: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour sampling of (B, H, W[, C]) at (B, N, 2) coords.
 
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    Coordinates round half to even and clamp as in JAX, non-finite ones
+    included (``round_clip_xy``)."""
     squeeze = grid.ndim == 3
     if squeeze:
         grid = grid[..., None]
     B, H, W, C = grid.shape
-    x = torch.clamp(torch.round(xy[..., 0]).to(torch.int64), 0, W - 1)
-    y = torch.clamp(torch.round(xy[..., 1]).to(torch.int64), 0, H - 1)
-    idx = y * W + x  # (B, N)
+    c = round_clip_xy(xy, (0, 0), (W - 1, H - 1))
+    idx = c[..., 1] * W + c[..., 0]  # (B, N)
     out = torch.gather(
         grid.reshape(B, H * W, C), 1, idx[..., None].expand(idx.shape + (C,))
     )

@@ -73,7 +73,13 @@ def _centers(B, n, H, W, gen):
     return xy
 
 
-@pytest.mark.parametrize("shape,n,radius", [((8, 480, 640), 500, 10), ((1, 59, 300), 37, 10), ((2, 21, 33), 5, 10), ((3, 40, 40), 9, 15)])
+# B N = 111 is a multiple neither of the kernel's 8 keypoints per block nor
+# of 4 (a ragged last block, windows at odd float offsets); N = 1 is one
+# warp; side 7 is a window smaller than a warp-wide load, sides 31 and
+# 33 take two and three passes of 512 pixels.
+@pytest.mark.parametrize("shape,n,radius", [((8, 480, 640), 500, 10), ((1, 59, 300), 37, 10), ((2, 21, 33), 5, 10),
+                                            ((3, 40, 40), 9, 15), ((3, 83, 300), 37, 10), ((1, 480, 640), 1, 10),
+                                            ((1, 64, 80), 9, 3), ((2, 70, 90), 11, 15), ((1, 70, 90), 5, 16)])
 def test_gather_patches_kernel_matches_plain(cuda, shape, n, radius):
     B, H, W = shape
     gen = torch.Generator().manual_seed(2)
@@ -86,7 +92,8 @@ def test_gather_patches_kernel_matches_plain(cuda, shape, n, radius):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("shape,n", [((2, 64, 128), 16), ((1, 48, 128), 8), ((1, 64, 128), 7), ((2, 480, 640), 8192)])
+@pytest.mark.parametrize("shape,n", [((2, 64, 128), 16), ((1, 48, 128), 8), ((1, 64, 128), 7), ((2, 480, 640), 8192),
+                                     ((3, 83, 300), 37), ((1, 480, 640), 1)])
 def test_gather_patches_padded_kernel_matches_plain(cuda, shape, n):
     B, H, W = shape
     gen = torch.Generator().manual_seed(3)
@@ -96,6 +103,25 @@ def test_gather_patches_padded_kernel_matches_plain(cuda, shape, n):
     ref = kgather.gather_patches_reference(img, xy, 15, 32)
     torch.cuda.synchronize()
     assert got.shape == (B, n, 32, 32)
+    assert torch.equal(got, ref)
+
+
+EXTREMES = [float("inf"), float("-inf"), float("nan"), 3e9, -3e9]
+
+
+@pytest.mark.parametrize("wrapper,radius,side", [("gather_patches", 10, 21), ("gather_patches_padded", 15, 32)])
+def test_gather_patches_non_finite_centres_match_plain(cuda, wrapper, radius, side):
+    """+-inf, NaN and +-3e9 in x, y or both land where the plain version
+    (JAX's saturating conversion before the clip) puts them."""
+    B, H, W = 2, 83, 300
+    pts = [p for v in EXTREMES for p in ((v, H / 2), (W / 2, v), (v, v))]
+    pts += [(u, v) for u in EXTREMES for v in EXTREMES if u is not v]
+    gen = torch.Generator().manual_seed(5)
+    img = torch.randn((B, H, W), generator=gen).to(cuda)
+    xy = torch.tensor(pts, dtype=torch.float32)[None].repeat(B, 1, 1).to(cuda)
+    got = getattr(kgather, wrapper)(img, xy, radius)
+    ref = kgather.gather_patches_reference(img, xy, radius, side)
+    torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
 
