@@ -67,6 +67,34 @@ device synchronised at the end of each):
    without the weights this seed tracks the walking person, as in the
    paired CPU runs of both packages).
 
+12. trained weights -- weights/frontend_tiny.npz and weights/segmenter.npz
+   (export_weights.py) are read before the build; their sizes are printed.
+13. trained tiny learned path -- ``run-slam --synthetic --frontend learned
+   --train-config configs/train_tiny_synthetic.yaml --checkpoint
+   weights/frontend_tiny.npz``, 60 frames, then ``evaluate``: ATE below
+   TINY_ATE_BOUND_M, gather_patches launched at least once per chunk.
+14. trained segmenter -- ``run-slam --synthetic --dynamic --seed 1
+   --semantics model --segmenter-checkpoint weights/segmenter.npz``, 60
+   frames: ATE below SEG_MODEL_ATE_BOUND_M; the card's 1/4-resolution
+   labels of those frames against the GT labels: person recall at least
+   SEG_PERSON_RECALL_MIN (label accuracy printed).
+15. loop path -- accuracy.py's loop protocol (LOOP_* constants):
+   ``run_slam_online`` with and without closure on the same features of
+   the 320-frame harsh loop; at least one loop closed, the closure ATE
+   below LOOP_ATE_BOUND_M; per-chunk ``slam_s`` and ``closure_s`` and the
+   ratio of the last third of the chunk times to the first third printed.
+16. closing pass card vs cpu -- ``close_sequence_loops`` over that run's
+   odometry on the CPU and on the card, on identical features: the same
+   loops, corrected poses within 1e-3 m and 1e-3 rad.
+17. CLI loop closing -- ``run-slam --synthetic --loop-closure offline``
+   and ``online`` (60 frames), then ``evaluate``: ATE below
+   CLI_LOOP_ATE_BOUND_M.
+
+Every path that runs a kernel resets the launch counters just before it
+and reads them just after; the kernels line sums them (``launches``)
+beside each path's count (``launches_by_path``). The whole script aims
+to finish within TARGET_TOTAL_S by its own clock.
+
 Then one JSON line describing every kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Every failure raises, so the exit code
 is non-zero and the last line is not printed.
@@ -84,6 +112,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 SEED = 0
 MAIN_FRAMES = 60  # the run-slam default; not cut
@@ -122,6 +152,41 @@ DYNAMIC_ATE_BOUND_M = 0.05
 DYNAMIC_OFF_ATE_FLOOR_M = 0.5
 DYNAMIC_SEED = 1
 LEARNED_CONFIG = "configs/train_vits_synthetic_long.yaml"
+
+# Trained weights, exported from the committed orbax checkpoints by
+# export_weights.py. Each bound comes from the JAX package's CPU runs of
+# the same command (PERF.md section 2): 60 frames at 640x480, seeds 0-3.
+TINY_CONFIG = "configs/train_tiny_synthetic.yaml"
+TINY_WEIGHTS = "weights/frontend_tiny.npz"
+SEGMENTER_WEIGHTS = "weights/segmenter.npz"
+# run-slam --synthetic --frontend learned (the trained tiny frontend): JAX
+# 0.018752, 0.020083, 0.024481, 0.014596 m; the bound is twice the worst.
+TINY_ATE_BOUND_M = 2 * 0.024481
+# run-slam --synthetic --dynamic --semantics model (the trained segmenter):
+# JAX 0.022010, 0.022231, 0.019590, 0.023760 m; twice the worst. Seed 1 is
+# the one where --semantics off tracks the walking person (above).
+SEG_MODEL_ATE_BOUND_M = 2 * 0.023760
+# The trained segmenter's 1/4-resolution labels on those 60 dynamic frames
+# against the rendered GT labels (accuracy.py's dynamic_sem_model row, JAX
+# on the CPU): person recall 0.979746, label accuracy 0.919885.
+SEG_PERSON_RECALL_JAX = 0.979746
+SEG_LABEL_ACCURACY_JAX = 0.919885
+SEG_PERSON_RECALL_MIN = SEG_PERSON_RECALL_JAX - 0.02
+# Loop closing, accuracy.py's loop protocol: the 320-frame harsh loop at
+# 640x480, 1000 ORB keypoints, the default SlamConfig, 32-frame chunks,
+# min_score 0.30, min_frame_gap 60, min_inliers 25, RANSAC seed 0. The JAX
+# package on the CPU: 0.018156 m with closure (5 loops), 0.018296 m
+# without; the bound is twice the closure ATE.
+LOOP_FRAMES = 320
+LOOP_KEYPOINTS = 1000
+LOOP_CHUNK = 32
+LOOP_KW = dict(min_score=0.30, min_frame_gap=60, min_inliers=25)
+LOOP_ATE_BOUND_M = 2 * 0.018156
+# run-slam --synthetic --loop-closure offline / online (60 frames, seed 0):
+# JAX on the CPU 0.009174 m (7 loops) / 0.009028 m (5 loops); the bound is
+# the larger of the ORB path's 0.05 m and twice the worse.
+CLI_LOOP_ATE_BOUND_M = max(0.05, 2 * 0.009174)
+TARGET_TOTAL_S = 600
 # gather_patches cases: (wrapper, (B, H, W), N, radius, centres). The first
 # is the learned path's call per 8-frame chunk (500 keypoints on distinct
 # cells of the 30x40 patch grid, 21x21 windows); the kernels line reports
@@ -606,6 +671,99 @@ def check_frontend(torch, tracking, synthetic, seg_mod) -> None:
                 raise AssertionError("the weight map changed nothing on the card")
 
 
+def poses_agree(P, Q) -> tuple:
+    """(max translation difference in m, max rotation difference in rad)
+    of two (F, 4, 4) pose stacks. The angle is 2 asin(|R_P - R_Q|_F / sqrt(8)),
+    exact for rotations and 0 for equal matrices (the arccos of the
+    relative rotation's trace turns f32 rounding into its square root)."""
+    P, Q = np.asarray(P, np.float64), np.asarray(Q, np.float64)
+    dt = float(np.abs(P[:, :3, 3] - Q[:, :3, 3]).max())
+    fro = np.linalg.norm(P[:, :3, :3] - Q[:, :3, :3], axis=(1, 2))
+    dr = float((2 * np.arcsin(np.minimum(fro / np.sqrt(8.0), 1.0))).max())
+    return dt, dr
+
+
+def segmenter_fidelity(torch, synthetic, render_all, seg_mod, run_slam_cli) -> tuple:
+    """The trained segmenter's 1/4-resolution labels on the card over the
+    dynamic phase's 60 frames against the rendered GT labels, subsampled
+    to that grid as accuracy.py does: (person recall, label accuracy)."""
+    args = argparse.Namespace(segmenter_checkpoint=SEGMENTER_WEIGHTS)
+    seg = run_slam_cli.load_segmenter(args, torch.device("cuda"))
+    rgb, _, _, labels = render_all(synthetic.make_dynamic_sequence(num_frames=MAIN_FRAMES, scale=1.0))
+    pred = []
+    with torch.no_grad():
+        for i in range(0, len(rgb), run_slam_cli.SEGMENTER_CHUNK):
+            x = torch.from_numpy(rgb[i:i + run_slam_cli.SEGMENTER_CHUNK]).cuda()
+            pred.append(seg_mod.predict_classes(seg(x, full_res=False)).cpu())
+    pred = torch.cat(pred).numpy()
+    sy, sx = labels.shape[1] // pred.shape[1], labels.shape[2] // pred.shape[2]
+    gt = labels[:, ::sy, ::sx][:, :pred.shape[1], :pred.shape[2]]
+    person = gt == synthetic.CLASS_PERSON
+    recall = float((pred[person] == synthetic.CLASS_PERSON).mean())
+    return recall, float((pred == gt).mean())
+
+
+def loop_path(torch, synthetic, run_slam_cli, system, online, prng, ate_rpe, reset_counts,
+              read_counts) -> dict:
+    """accuracy.py's loop protocol on the card (constants above): the
+    harsh loop rendered once, its ORB features, then ``run_slam_online``
+    with loop closure and without on the same features."""
+    seq = synthetic.make_loop_sequence(num_frames=LOOP_FRAMES, scale=1.0, harsh=True)
+    t0 = time.perf_counter()
+    _, gray, depth, _ = run_slam_cli.render_all(seq)
+    t_render = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    feats = run_slam_cli.features_for_frames(gray, depth, LOOP_KEYPOINTS, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t_frontend = time.perf_counter() - t0
+    del gray, depth
+    cfg = system.SlamConfig()
+    u = torch.from_numpy(prng.slam_uniforms(SEED, LOOP_FRAMES, cfg.num_hypotheses)).cuda()
+    runs = {}
+    for name, closure in (("closure", True), ("odometry", False)):
+        timings = []
+        t0 = time.perf_counter()
+        out, loops = online.run_slam_online(u, feats, seq.cam, cfg, chunk_size=LOOP_CHUNK,
+                                            enable_loop_closure=closure, timings=timings, **LOOP_KW)
+        poses = out.poses_wc.cpu().numpy().astype(np.float64)
+        wall = time.perf_counter() - t0
+        res = ate_rpe.evaluate_trajectory(seq.timestamps, seq.poses_wc, seq.timestamps, poses)
+        runs[name] = dict(out=out, poses=poses, loops=loops, timings=timings, wall=wall,
+                          ate=res["ate"]["rmse"], finite=bool(np.isfinite(poses).all()))
+    return dict(seq=seq, feats=feats, runs=runs, counts=read_counts(), render_s=t_render,
+                frontend_s=t_frontend)
+
+
+def closing_pass_card_vs_cpu(torch, tracking, loop_closing, loop) -> None:
+    """One offline closing pass (``close_sequence_loops`` with the loop
+    protocol's gates) over the loop run's odometry, once on the CPU and
+    once on the card, on identical features: one set held on the CPU and
+    copied to the card. The two must accept the same loops, with corrected
+    poses within 1e-3 m and 1e-3 rad."""
+    feats_cpu = tracking.FrameFeatures(*[x.cpu() for x in loop["feats"]])
+    feats_card = tracking.FrameFeatures(*[x.cuda() for x in feats_cpu])
+    odo = loop["runs"]["odometry"]
+    is_kf = odo["out"].is_keyframe.cpu().numpy()
+    cam = loop["seq"].cam
+    t0 = time.perf_counter()
+    p_cpu, l_cpu = loop_closing.close_sequence_loops(odo["poses"], feats_cpu, is_kf, cam, **LOOP_KW)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_card, l_card = loop_closing.close_sequence_loops(odo["poses"], feats_card, is_kf, cam, **LOOP_KW)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    dt, dr = poses_agree(p_card, p_cpu)
+    pairs_cpu, pairs_card = [(a, b) for a, b, _ in l_cpu], [(a, b) for a, b, _ in l_card]
+    log(f"  closing pass over {int(is_kf.sum())} keyframes: cpu {t_cpu:.2f} s loops {pairs_cpu}; card "
+        f"{t_card:.2f} s loops {pairs_card}; corrected poses max diff {dt:.3g} m {dr:.3g} rad "
+        f"(bounds 1e-3 / 1e-3)")
+    if pairs_cpu != pairs_card or not (dt <= 1e-3 and dr <= 1e-3):
+        raise AssertionError("the closing pass on the card disagrees with the CPU's")
+    if not pairs_cpu:
+        raise AssertionError("the closing pass accepted no loop: nothing was compared")
+
+
 def main() -> int:
     import torch
 
@@ -623,7 +781,9 @@ def main() -> int:
     from semantic_slam_master_tpu_torch.ops import fast as fast_mod
     from semantic_slam_master_tpu_torch.ops import image
     from semantic_slam_master_tpu_torch.ops.kernels import patches as kpatch
-    from semantic_slam_master_tpu_torch.slam import tracking
+    from semantic_slam_master_tpu_torch.core import prng
+    from semantic_slam_master_tpu_torch.eval import ate_rpe
+    from semantic_slam_master_tpu_torch.slam import loop_closing, online, system, tracking
     from semantic_slam_master_tpu_torch.train import config as config_mod
 
     counters = {"fast_score": kfast.fast_score, "gather_aligned_patches": kpatch.gather_aligned_patches,
@@ -647,6 +807,12 @@ def main() -> int:
             f"count {torch.cuda.device_count()} pyyaml "
             f"{'present' if importlib.util.find_spec('yaml') else 'absent'}")
 
+    with phase("trained weights (export_weights.py)"):
+        for path in (TINY_WEIGHTS, SEGMENTER_WEIGHTS):
+            with np.load(path) as z:
+                n, nbytes = len(z.files), sum(z[k].nbytes for k in z.files)
+            log(f"  {path}: {os.path.getsize(path)} bytes on disk, {n} arrays, {nbytes} bytes of float32")
+
     with phase("build"):
         secs = build.build(force=True)
         build.library()
@@ -668,7 +834,17 @@ def main() -> int:
     with phase("ORB frontend card vs cpu"):
         check_frontend(torch, tracking, synthetic, seg_mod)
 
-    launches = {}
+    launches = {name: {} for name in counters}
+
+    def record(path: str, counts: dict, needed) -> None:
+        """Keep one path's launch counts; fail if a kernel it runs (with
+        the least launches it must make) stayed below that."""
+        for name, least in needed.items():
+            if counts[name] < least:
+                raise AssertionError(f"{name} launched {counts[name]} times on the {path} path, "
+                                     f"expected >= {least}")
+            launches[name][path] = counts[name]
+
     with phase("ORB main path: run-slam --synthetic + evaluate"), \
             tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         reset_counts()
@@ -682,10 +858,7 @@ def main() -> int:
             f"launches={counts} frontend_chunks={chunks} run={run}")
         if not (ate == ate and ate < 0.05):
             raise AssertionError(f"ATE {ate} is not finite and below 0.05 m")
-        for name in ("fast_score", "gather_aligned_patches"):
-            if counts[name] < 4 * chunks:
-                raise AssertionError(f"{name} launched {counts[name]} times, expected >= {4 * chunks}")
-            launches[name] = counts[name]
+        record("orb", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
 
     with phase("learned frontend + segmenter card vs cpu"):
         check_learned(torch, synthetic, run_slam_cli.render_all, tracking, config_mod, seg_mod,
@@ -707,10 +880,7 @@ def main() -> int:
             f"launches={counts} learned_chunks={chunks}")
         if not run["finite_poses"]:
             raise AssertionError("the learned path gave non-finite poses")
-        if counts["gather_patches"] < chunks:
-            raise AssertionError(f"gather_patches launched {counts['gather_patches']} times, "
-                                 f"expected >= {chunks}")
-        launches["gather_patches"] = counts["gather_patches"]
+        record("learned_vits", counts, {"gather_patches": chunks})
         split = learned_split(torch, synthetic, run_slam_cli.render_all, tracking, run_slam_cli,
                               select_keypoints)
         log("  learned path, device ms per 8-frame chunk (warm): "
@@ -730,9 +900,8 @@ def main() -> int:
             chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
             log(f"  --semantics {semantics}: frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} "
                 f"fps={run['fps']} ate_rmse_m={ate:.5f} keyframes={run['keyframes']} launches={counts}")
-            for name in ("fast_score", "gather_aligned_patches"):
-                if counts[name] < 4 * chunks:
-                    raise AssertionError(f"{name} launched {counts[name]} times on the dynamic path")
+            record(f"dynamic_{semantics}", counts,
+                   {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
         log(f"  dynamic ATE seed {DYNAMIC_SEED}: gt {ates['gt']:.5f} m (bound < {DYNAMIC_ATE_BOUND_M}), "
             f"off {ates['off']:.5f} m (bound > {DYNAMIC_OFF_ATE_FLOOR_M})")
         if not (ates["gt"] == ates["gt"] and ates["gt"] < DYNAMIC_ATE_BOUND_M):
@@ -741,6 +910,97 @@ def main() -> int:
         if not ates["off"] > DYNAMIC_OFF_ATE_FLOOR_M:
             raise AssertionError(f"dynamic ATE without semantics {ates['off']} m is not above "
                                  f"{DYNAMIC_OFF_ATE_FLOOR_M} m: the paired CPU runs' failure did not reproduce")
+
+    with phase("trained tiny learned path: run-slam --frontend learned --checkpoint + evaluate"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        reset_counts()
+        run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
+            "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--frontend", "learned",
+            "--train-config", TINY_CONFIG, "--checkpoint", TINY_WEIGHTS])
+        counts = read_counts()
+        ate = res["ate"]["rmse"]
+        chunks = -(-MAIN_FRAMES // run_slam_cli.LEARNED_CHUNK)
+        log(f"  frames={MAIN_FRAMES} tiny frontend ({TINY_WEIGHTS}) run_slam_wall_s={run['wall_s']:.2f} "
+            f"fps={run['fps']} frontend_s={run['frontend_s']} slam_loop_s={run['backend_s']} "
+            f"render_s={run['render_s']} keyframes={run['keyframes']} mean_inliers="
+            f"{run['mean_inliers']:.1f} ate_rmse_m={ate:.5f} (bound < {TINY_ATE_BOUND_M:.6f}) "
+            f"launches={counts}")
+        if not (run["finite_poses"] and ate == ate and ate < TINY_ATE_BOUND_M):
+            raise AssertionError(f"trained tiny learned path: ATE {ate} m is not finite and below "
+                                 f"{TINY_ATE_BOUND_M} m")
+        record("learned_tiny", counts, {"gather_patches": chunks})
+
+    with phase(f"trained segmenter: run-slam --dynamic --seed {DYNAMIC_SEED} --semantics model "
+               "--segmenter-checkpoint + evaluate"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        reset_counts()
+        run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
+            "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--dynamic", "--semantics", "model",
+            "--segmenter-checkpoint", SEGMENTER_WEIGHTS], seed=DYNAMIC_SEED)
+        counts = read_counts()
+        ate = res["ate"]["rmse"]
+        chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
+        record("dynamic_model", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+        recall, accuracy = segmenter_fidelity(torch, synthetic, run_slam_cli.render_all, seg_mod,
+                                              run_slam_cli)
+        log(f"  frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} fps={run['fps']} "
+            f"segmenter_s={run['segmenter_s']} ate_rmse_m={ate:.5f} (bound < {SEG_MODEL_ATE_BOUND_M:.6f}; "
+            f"off {ates['off']:.5f}, gt {ates['gt']:.5f}) person_recall={recall:.6f} (bound >= "
+            f"{SEG_PERSON_RECALL_MIN:.6f}; JAX {SEG_PERSON_RECALL_JAX}) label_accuracy={accuracy:.6f} "
+            f"(JAX {SEG_LABEL_ACCURACY_JAX}) launches={counts}")
+        if not (ate == ate and ate < SEG_MODEL_ATE_BOUND_M):
+            raise AssertionError(f"--semantics model: ATE {ate} m is not finite and below "
+                                 f"{SEG_MODEL_ATE_BOUND_M} m")
+        if not recall >= SEG_PERSON_RECALL_MIN:
+            raise AssertionError(f"segmenter person recall {recall} below {SEG_PERSON_RECALL_MIN}")
+
+    with phase(f"loop path: {LOOP_FRAMES}-frame harsh loop, run_slam_online with and without closure"):
+        loop = loop_path(torch, synthetic, run_slam_cli, system, online, prng, ate_rpe, reset_counts,
+                         read_counts)
+        chunks = -(-LOOP_FRAMES // run_slam_cli.FRONTEND_CHUNK)
+        record("loop", loop["counts"], {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+        for name, r in loop["runs"].items():
+            t = r["timings"]
+            slam_s = [c["slam_s"] for c in t]
+            closure_s = [c["closure_s"] for c in t]
+            third = max(1, len(t) // 3)
+            per_chunk = [a + b for a, b in zip(slam_s, closure_s)]
+            ratio = sum(per_chunk[-third:]) / max(sum(per_chunk[:third]), 1e-9)
+            log(f"  {name}: ate_rmse_m={r['ate']:.6f} loops={[(a, b, round(s, 3)) for a, b, s in r['loops']]} "
+                f"wall_s={r['wall']:.2f} keyframes={int(r['out'].is_keyframe.sum())} chunk slam_s={slam_s} "
+                f"closure_s={closure_s} last/first third of chunk times={ratio:.3f}")
+        closure, odom = loop["runs"]["closure"], loop["runs"]["odometry"]
+        log(f"  render_s={loop['render_s']:.2f} frontend_s={loop['frontend_s']:.2f} "
+            f"launches={loop['counts']}; closure ATE {closure['ate']:.6f} m (bound < "
+            f"{LOOP_ATE_BOUND_M:.6f}), odometry ATE {odom['ate']:.6f} m, {len(closure['loops'])} loops")
+        if not (closure["finite"] and odom["finite"]):
+            raise AssertionError("the loop path gave non-finite poses")
+        if not closure["loops"]:
+            raise AssertionError("the loop path closed no loop")
+        if not closure["ate"] < LOOP_ATE_BOUND_M:
+            raise AssertionError(f"loop closure ATE {closure['ate']} m not below {LOOP_ATE_BOUND_M} m")
+
+    with phase("closing pass card vs cpu on identical features"):
+        closing_pass_card_vs_cpu(torch, tracking, loop_closing, loop)
+    del loop
+
+    for mode in ("offline", "online"):
+        with phase(f"CLI loop closing: run-slam --synthetic --loop-closure {mode} + evaluate"), \
+                tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            reset_counts()
+            run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
+                "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--loop-closure", mode])
+            counts = read_counts()
+            ate = res["ate"]["rmse"]
+            chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
+            log(f"  frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} fps={run['fps']} "
+                f"slam_loop_s={run['backend_s']} closure_s={run['closure_s']} loops_closed="
+                f"{run['loops_closed']} loops={run['loops']} ate_rmse_m={ate:.6f} (bound < "
+                f"{CLI_LOOP_ATE_BOUND_M}) launches={counts}")
+            if not (run["finite_poses"] and ate == ate and ate < CLI_LOOP_ATE_BOUND_M):
+                raise AssertionError(f"--loop-closure {mode}: ATE {ate} m is not finite and below "
+                                     f"{CLI_LOOP_ATE_BOUND_M} m")
+            record(f"cli_{mode}", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
 
     kernels = []
     for name, src, replaces, r, timed_as in (
@@ -762,13 +1022,14 @@ def main() -> int:
         b_ms, b_by = bound(r["bytes"], r["ops"])
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": sum(launches[name].values()), "launches_by_path": launches[name],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r.get("library_ms"), "status": "checked", "timed_as": timed_as,
             **{k: r[k] for k in ("random_ms", "pass_share", "old_bound_ms") if k in r},
         })
     log(json.dumps({"kernels": kernels}))
-    log(f"chip_smoke total {time.perf_counter() - T_START:.2f} s")
+    log(f"chip_smoke total {time.perf_counter() - T_START:.2f} s (target < {TARGET_TOTAL_S} s)")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

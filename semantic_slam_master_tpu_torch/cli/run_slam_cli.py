@@ -1,12 +1,17 @@
 """Synthetic-world SLAM -> TUM trajectory (port of ``run-slam
---synthetic``; no loop closing).
+--synthetic``).
 
 Renders the synthetic room (``--dynamic``: with a walking person),
 optionally derives per-pixel semantic weights (``--semantics gt`` from
 the world's labels, ``--semantics model`` from the segmenter's
 1/4-resolution labels), runs the ORB frontend in chunks of 16 frames or
 the learned frontend (``--frontend learned``) in chunks of 8, then the
-SLAM loop, on ``--device`` (default ``cuda``), and writes
+SLAM loop, on ``--device`` (default ``cuda``). ``--loop-closure offline``
+closes loops over the finished run (``loop_closing.close_sequence_loops``,
+RANSAC seed 0 whatever ``--seed`` is, as the JAX CLI does);
+``--loop-closure online`` streams the run in chunks of ``--chunk-size``
+frames with a closing pass between chunks (``online.run_slam_online``).
+It writes
 ``<out>/<name>_trajectory.txt`` plus ``<name>_groundtruth.txt`` for
 ``evaluate``, and the run's stage times and counts as ``<name>_run.json``.
 
@@ -33,10 +38,10 @@ import torch
 
 from .. import convert
 from ..core import prng
-from ..core.device import resolve_device
+from ..core.device import resolve_device, synchronize
 from ..data import synthetic, trajectory_io
 from ..models import segmenter as seg_mod
-from ..slam import system, tracking
+from ..slam import loop_closing, online, system, tracking
 from ..train import config as config_mod
 
 FRONTEND_CHUNK = 16
@@ -116,11 +121,6 @@ def render(seq):
     return gray, depth
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _warn(msg: str) -> None:
     print(f"[run-slam] {msg}", file=sys.stderr)
 
@@ -183,12 +183,12 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
     t0 = time.perf_counter()
     segmenter = load_segmenter(args, device) if args.semantics == "model" else None
     frontend = load_learned_frontend(args, device) if args.frontend == "learned" else None
-    _sync(device)
+    synchronize(device)
     t_load = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     weight_map = semantic_weight_maps(rgb_np, labels_np, args.semantics, device, segmenter)
-    _sync(device)
+    synchronize(device)
     t_segmenter = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -196,7 +196,7 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
         feats = learned_features_for_frames(frontend, rgb_np, depth_np, device, weight_map=weight_map)
     else:
         feats = features_for_frames(gray_np, depth_np, args.num_keypoints, device, weight_map=weight_map)
-    _sync(device)
+    synchronize(device)
     t_frontend = time.perf_counter() - t0
     cfg = system.SlamConfig(
         num_landmarks=args.num_landmarks,
@@ -207,9 +207,20 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
     # with the JAX package's run of the same seed.
     uniforms = torch.from_numpy(prng.slam_uniforms(args.seed, len(seq), cfg.num_hypotheses)).to(device)
     t1 = time.perf_counter()
-    out = system.run_slam(uniforms, feats, seq.cam, cfg)
+    loops = []
+    if args.loop_closure == "online":
+        out, loops = online.run_slam_online(uniforms, feats, seq.cam, cfg, chunk_size=args.chunk_size)
+    else:
+        out = system.run_slam(uniforms, feats, seq.cam, cfg)
     poses = out.poses_wc.cpu().numpy().astype(np.float64)
     t_backend = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    if args.loop_closure == "offline":
+        poses, loops = loop_closing.close_sequence_loops(poses, feats, out.is_keyframe.cpu().numpy(),
+                                                         seq.cam)
+    synchronize(device)
+    t_closure = time.perf_counter() - t1
+    t_backend += t_closure
     t_slam = t_segmenter + t_frontend + t_backend
 
     out_path.parent.mkdir(parents=True, exist_ok=True)
@@ -228,6 +239,10 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
         "slam_s": round(t_slam, 3),
         "fps": round(n / max(t_slam, 1e-9), 2),
         "keyframes": int(out.is_keyframe.sum()),
+        "loop_closure": args.loop_closure,
+        "loops_closed": len(loops),
+        "loops": [[int(a), int(b), float(sc)] for a, b, sc in loops],
+        "closure_s": round(t_closure, 3),
         "mean_inliers": float(out.num_inliers[1:].float().mean()) if n > 1 else 0.0,
         "finite_poses": bool(np.isfinite(poses).all()),
         "trajectory": str(out_path),
@@ -261,6 +276,12 @@ def main(argv=None):
     parser.add_argument("--num-landmarks", type=int, default=2048)
     parser.add_argument("--window-size", type=int, default=5)
     parser.add_argument("--ba-iters", type=int, default=4)
+    parser.add_argument("--loop-closure", nargs="?", const="offline",
+                        choices=("off", "offline", "online"), default="off",
+                        help="BoW loop closing: 'offline' = a pass over the finished run; 'online' "
+                             "= streaming closure between chunks that re-anchors the live map")
+    parser.add_argument("--chunk-size", type=int, default=32,
+                        help="frames per SLAM chunk between closing passes (online mode)")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the RANSAC draws (JAX's own for the same seed); seeded "
                              "weights follow the JAX CLI's rule instead: see the description")

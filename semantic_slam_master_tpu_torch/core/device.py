@@ -15,3 +15,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU), so host-clock
+    stage times cover the work they launched."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,1 +1,2 @@
-"""Tracking frontend, PnP, bundle adjustment and the SLAM system."""
+"""Tracking frontend, PnP, bundle adjustment, the SLAM system and loop
+closing (bag of words, pose graph, online chunks)."""

@@ -206,7 +206,8 @@ def bootstrap_map(first: FrameFeatures, cam: PinholeCamera, cfg: SlamConfig) -> 
     return _write_keyframe(state, eye, first, lm_idx0, insert_mask, first.sem_weight)
 
 
-def _frame(features: FrameFeatures, i: int) -> FrameFeatures:
+def frame(features: FrameFeatures, i: int) -> FrameFeatures:
+    """Frame ``i`` of batched features."""
     return FrameFeatures(*[x[i] for x in features])
 
 
@@ -248,6 +249,42 @@ def slam_step(
     return state, T_wc, since, result.num_inliers, m.count(), need_kf
 
 
+def run_slam_steps(
+    uniforms: torch.Tensor,
+    features: FrameFeatures,
+    cam: PinholeCamera,
+    cfg: SlamConfig,
+    state: MapState,
+    T_prev_wc: torch.Tensor,
+    since: int,
+):
+    """Continue SLAM over ``features`` (F frames, no bootstrap frame) from
+    an existing map: the resumable core of :func:`run_slam`, as the JAX
+    package's ``run_slam_steps``. ``uniforms`` (F, num_hypotheses, 3)
+    holds each frame's RANSAC draws; ``since`` counts frames since the
+    last keyframe. Returns ((state, T_last_wc, since), SlamOutput rows
+    for these F frames); chunked callers (``slam.online``) carry the
+    triple across calls."""
+    poses, n_inl, n_match, is_kf = [], [], [], []
+    for f in range(features.xy.shape[0]):
+        state, T_prev_wc, since, inl, nm, kf = slam_step(
+            uniforms[f], frame(features, f), cam, cfg, state, T_prev_wc, since
+        )
+        poses.append(T_prev_wc)
+        n_inl.append(inl)
+        n_match.append(nm)
+        is_kf.append(kf)
+    dev = features.xy.device
+    empty = torch.zeros((0,), dtype=torch.int64, device=dev)
+    out = SlamOutput(
+        poses_wc=torch.stack(poses) if poses else torch.zeros((0, 4, 4), device=dev),
+        num_inliers=torch.stack(n_inl) if n_inl else empty,
+        num_matches=torch.stack(n_match) if n_match else empty,
+        is_keyframe=torch.tensor(is_kf, dtype=torch.bool, device=dev),
+    )
+    return (state, T_prev_wc, since), out
+
+
 def run_slam(
     uniforms: torch.Tensor | torch.Generator,
     features: FrameFeatures,
@@ -266,23 +303,38 @@ def run_slam(
         uniforms = torch.rand(
             (F, cfg.num_hypotheses, 3), generator=uniforms, device=uniforms.device
         ).to(dev)
-    state = bootstrap_map(_frame(features, 0), cam, cfg)
-    T_wc = torch.eye(4, dtype=torch.float32, device=dev)
-    since = 0
-    poses, n_inl, n_match, is_kf = [T_wc], [torch.zeros((), dtype=torch.int64, device=dev)], [
-        torch.zeros((), dtype=torch.int64, device=dev)
-    ], [True]
-    for f in range(1, F):
-        state, T_wc, since, inl, nm, kf = slam_step(
-            uniforms[f], _frame(features, f), cam, cfg, state, T_wc, since
-        )
-        poses.append(T_wc)
-        n_inl.append(inl)
-        n_match.append(nm)
-        is_kf.append(kf)
+    state = bootstrap_map(frame(features, 0), cam, cfg)
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    # The bootstrap frame is a keyframe: the gap counter starts at zero.
+    _, out = run_slam_steps(uniforms[1:], FrameFeatures(*[x[1:] for x in features]), cam, cfg,
+                            state, eye, 0)
+    zero = torch.zeros((1,), dtype=torch.int64, device=dev)
     return SlamOutput(
-        poses_wc=torch.stack(poses),
-        num_inliers=torch.stack(n_inl),
-        num_matches=torch.stack(n_match),
-        is_keyframe=torch.tensor(is_kf, device=dev),
+        poses_wc=torch.cat([eye[None], out.poses_wc]),
+        num_inliers=torch.cat([zero, out.num_inliers]),
+        num_matches=torch.cat([zero, out.num_matches]),
+        is_keyframe=torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), out.is_keyframe]),
     )
+
+
+def refine_active_map(state: MapState, cam: PinholeCamera, cfg: SlamConfig,
+                      ba_iters: int = 8) -> MapState:
+    """Post-loop refinement of the active map (the JAX package's
+    ``refine_active_map``): each landmark observed in the window is
+    re-triangulated as the confidence-weighted mean of its keyframe
+    observations' backprojections under the (corrected) window poses,
+    then window BA runs with ``ba_iters`` iterations. Landmarks with no
+    live window observation keep their positions."""
+    obs_ok = (
+        state.kf_valid
+        & state.kf_used[:, None]
+        & state.lm_valid[None, :]
+        & (state.kf_obs_depth > 0.05)
+    )
+    pts_cam = backproject(state.kf_obs, state.kf_obs_depth, cam)  # (W, M, 3)
+    pts_world = lie.transform_points(lie.pose_inverse(state.kf_poses), pts_cam)  # (W, M, 3)
+    w = (obs_ok.to(pts_world.dtype) * state.kf_conf)[..., None]
+    total = torch.sum(w, dim=0)
+    tri = torch.sum(w * pts_world, dim=0) / torch.clamp(total, min=1e-9)
+    state = state._replace(positions=torch.where(total > 0, tri, state.positions))
+    return _run_local_ba(state, cam, cfg._replace(ba_iters=ba_iters))
