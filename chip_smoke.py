@@ -89,6 +89,28 @@ device synchronised at the end of each):
 17. CLI loop closing -- ``run-slam --synthetic --loop-closure offline``
    and ``online`` (60 frames), then ``evaluate``: ATE below
    CLI_LOOP_ATE_BOUND_M.
+18. TUM input -- the 60-frame 640x480 world written as the TUM directory
+   ``rgbd_dataset_freiburg2_synthetic`` (8-bit RGB PNGs, 16-bit depth
+   x5000, groundtruth.txt, rgb.txt, depth.txt, associations.txt), its PNG
+   rows filtered with None, Sub and Up only (the filters data/png.py
+   decodes vectorised); whether png.h, libpng and PIL are on the machine
+   and which decoder runs; all 60 frames decoded by the native loader
+   (built from native/semslam_io.cpp) and by the plain decoder, bit-equal,
+   with both host decode rates; then ``frame_chunks(chunk=16)`` streamed
+   to the card: every chunk equal to the host arrays, every array copied
+   from a pinned buffer.
+19. TUM main path -- ``run-slam --data-root <dir> --sequences
+   rgbd_dataset_freiburg2_synthetic`` (the ORB path, the run-slam
+   defaults), then ``evaluate --data-root``: ATE below TUM_ATE_BOUND_M,
+   both ORB kernels launched exactly 4x per 16-frame chunk.
+20. acceptance suite -- ``run-tests --frontend orb-pyramid`` on that
+   directory at ``--difficulty normal``, and ``run-tests --frontend
+   learned --config configs/train_tiny_synthetic.yaml --checkpoint
+   weights/frontend_tiny.npz --synthetic``: repeatability, inlier ratio,
+   precision and tracking success within SUITE_MARGIN of the JAX
+   package's CPU figures (SUITE_*_JAX); the ORB kernels launched on the
+   first, gather_patches on the second; the performance test's stage
+   times and fps printed beside the card's name and power limit.
 
 Every path that runs a kernel resets the launch counters just before it
 and reads them just after; the kernels line sums them (``launches``)
@@ -105,9 +127,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes.util
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -186,6 +210,30 @@ LOOP_ATE_BOUND_M = 2 * 0.018156
 # JAX on the CPU 0.009174 m (7 loops) / 0.009028 m (5 loops); the bound is
 # the larger of the ORB path's 0.05 m and twice the worse.
 CLI_LOOP_ATE_BOUND_M = max(0.05, 2 * 0.009174)
+# The TUM phases: the 60-frame 640x480 world written as a TUM directory
+# whose name gives the fr2 camera (the synthetic world's). Its rows are
+# filtered with None, Sub and Up only: data/png.py decodes those
+# vectorised, while Average and Paeth rows (which libpng's and PIL's
+# adaptive filtering also choose) go along anti-diagonals, several times
+# slower per frame.
+TUM_NAME = "rgbd_dataset_freiburg2_synthetic"
+TUM_FILTERS = ("none", "sub", "up")
+TUM_CHUNK = 16
+# run-slam --data-root on that directory (the ORB path, the run-slam
+# defaults), then evaluate --data-root: the JAX package on the CPU gives
+# 0.006630, 0.005861, 0.007477, 0.009830 m over seeds 0-3; the bound is
+# twice the worst.
+TUM_ATE_BOUND_M = 2 * 0.009830
+# run-tests on the same inputs, the JAX package on the CPU: --frontend
+# orb-pyramid --difficulty normal on the TUM directory, and --frontend
+# learned with the trained tiny frontend (its orbax checkpoint) --synthetic
+# (40 frames at scale 0.5). Each figure on the card must lie within
+# SUITE_MARGIN of JAX's.
+SUITE_MARGIN = 0.02
+SUITE_TUM_JAX = {"repeatability_1": 0.915320, "repeatability_5": 0.854339, "inlier_ratio": 0.932385,
+                 "precision": 0.692627, "tracking_1": 1.0, "tracking_5": 1.0}
+SUITE_LEARNED_JAX = {"repeatability_1": 0.732786, "repeatability_5": 0.788204, "inlier_ratio": 0.793379,
+                     "precision": 0.790295, "tracking_1": 1.0, "tracking_5": 1.0}
 TARGET_TOTAL_S = 600
 # gather_patches cases: (wrapper, (B, H, W), N, radius, centres). The first
 # is the learned path's call per 8-frame chunk (500 keypoints on distinct
@@ -607,13 +655,13 @@ def learned_split(torch, synthetic, render_all, tracking, run_slam_cli, select_k
     return out
 
 
-def run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, argv, seed: int = SEED) -> tuple:
+def run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, argv, seed: int = SEED, eval_argv=()) -> tuple:
     """``run-slam`` then ``evaluate`` in ``tmp``: (run stats, evaluation)."""
     t0 = time.perf_counter()
     run_slam_cli.main(argv + ["--device", "cuda", "--seed", str(seed), "--output-dir", tmp])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    evaluate_cli.main(["--trajectories", tmp])
+    evaluate_cli.main(["--trajectories", tmp, *eval_argv])
     with open(os.path.join(tmp, "results.json")) as f:
         (name, res), = json.load(f).items()
     with open(os.path.join(tmp, f"{name}_run.json")) as f:
@@ -764,6 +812,114 @@ def closing_pass_card_vs_cpu(torch, tracking, loop_closing, loop) -> None:
         raise AssertionError("the closing pass accepted no loop: nothing was compared")
 
 
+def png_environment() -> dict:
+    """Whether the machine has libpng's header (the compiler finds
+    ``<png.h>``), the libpng library, and PIL."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    header = False
+    if cxx:
+        header = subprocess.run([cxx, "-E", "-x", "c++", "-"], input="#include <png.h>\n", capture_output=True,
+                                text=True, timeout=60).returncode == 0
+    return {"png.h": header, "libpng": ctypes.util.find_library("png16") or ctypes.util.find_library("png"),
+            "PIL": importlib.util.find_spec("PIL") is not None, "g++": cxx}
+
+
+def bits_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a.view(np.uint32) == b.view(np.uint32)).all())
+
+
+def tum_input(torch, synthetic, tum, native_io, prefetch, root: str, device: str = "cuda") -> dict:
+    """Phase 18 (see the module docstring): writes the TUM directory under
+    ``root`` and checks the decoders and the pinned stream to ``device``
+    (on the CPU, for a rehearsal, the stream is the identity and nothing
+    is pinned)."""
+    seq = synthetic.make_sequence(num_frames=MAIN_FRAMES, scale=1.0)
+    t0 = time.perf_counter()
+    tum.write_tum_sequence(seq, root, TUM_NAME, filters=TUM_FILTERS)
+    t_write = time.perf_counter() - t0
+    env = png_environment()
+    decoder = native_io.decoder()
+    log(f"  wrote {MAIN_FRAMES} frames as {TUM_NAME} (rendered and encoded, PNG row filters {TUM_FILTERS}) in "
+        f"{t_write:.2f} s; machine: png.h {'present' if env['png.h'] else 'absent'}, libpng "
+        f"{env['libpng'] or 'absent'}, PIL {'present' if env['PIL'] else 'absent'}, g++ {env['g++'] or 'absent'}; "
+        f"decoder {decoder}")
+    ts = tum.TUMSequence(root, TUM_NAME)
+    cam = ts.cam
+    files = (ts.rgb_files, ts.depth_files)
+    geometry = dict(width=cam.width, height=cam.height, depth_scale=cam.depth_scale)
+    t0 = time.perf_counter()
+    plain = native_io.load_batch_plain(*files, **geometry)
+    t_plain = time.perf_counter() - t0
+    rates = {"plain_fps": MAIN_FRAMES / t_plain}
+    if decoder["name"] == "native":
+        t0 = time.perf_counter()
+        native = native_io.load_batch(*files, **geometry)
+        rates["native_fps"] = MAIN_FRAMES / (time.perf_counter() - t0)
+        equal = [bits_equal(n, p) for n, p in zip(native, plain)]
+        log(f"  native vs plain decode of {MAIN_FRAMES} frames: rgb bit-equal {equal[0]}, depth bit-equal "
+            f"{equal[1]}")
+        if not all(equal):
+            raise AssertionError("the native loader and the plain decoder disagree")
+    log(f"  host decode rate (rgb + depth, 640x480): " + " ".join(f"{k}={v:.2f}" for k, v in rates.items()))
+
+    rgb, depth = plain
+    gray = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]).astype(np.float32)
+    transfer = prefetch.PinnedTransfer(device, 4)
+    t0 = time.perf_counter()
+    n_chunks = 0
+    for k, chunk in enumerate(prefetch.frame_chunks(*files, chunk=TUM_CHUNK, device=device, transfer=transfer,
+                                                    **geometry)):
+        lo = k * TUM_CHUNK
+        count = min(TUM_CHUNK, MAIN_FRAMES - lo)
+        idx = [min(lo + i, lo + count - 1) for i in range(TUM_CHUNK)]  # the padded tail repeats its last frame
+        if int(chunk["count"]) != count or chunk["gray"].device.type != device:
+            raise AssertionError(f"chunk {k}: count {int(chunk['count'])}, device {chunk['gray'].device}")
+        for key, host in (("gray", gray), ("depth", depth)):
+            if not bits_equal(chunk[key].cpu().numpy(), host[idx]):
+                raise AssertionError(f"prefetched chunk {k} {key} differs from the host arrays")
+        n_chunks += 1
+    t_stream = time.perf_counter() - t0
+    pinned = 2 * n_chunks if device == "cuda" else 0
+    log(f"  frame_chunks(chunk={TUM_CHUNK}) to {device}: {n_chunks} chunks equal to the host arrays, "
+        f"{transfer.pinned_copies} arrays copied from pinned buffers (expected {pinned}), "
+        f"{MAIN_FRAMES / t_stream:.2f} frames/s decoded and streamed")
+    if n_chunks != -(-MAIN_FRAMES // TUM_CHUNK) or transfer.pinned_copies != pinned:
+        raise AssertionError("frame_chunks did not stream every chunk from pinned buffers")
+    return {"env": env, "decoder": decoder, "rates": rates}
+
+
+def suite_figures(r: dict) -> dict:
+    rep, dq, tr = r["repeatability"], r["descriptor_quality"], r["tracking"]
+    return {"repeatability_1": rep[0]["mean_repeatability"], "repeatability_5": rep[1]["mean_repeatability"],
+            "inlier_ratio": dq["inlier_ratio"], "precision": dq["precision"],
+            "tracking_1": tr[0]["success_rate"], "tracking_5": tr[1]["success_rate"]}
+
+
+def run_suite(run_tests_cli, tmp, argv, label: str, reference: dict, card: str) -> dict:
+    """``run-tests`` on the card; its figures within SUITE_MARGIN of the
+    JAX package's; the performance test printed."""
+    out = os.path.join(tmp, f"{label}.json")
+    t0 = time.perf_counter()
+    rc = run_tests_cli.main(argv + ["--device", "cuda", "--output", out])
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        (name, r), = json.load(f).items()
+    got = suite_figures(r)
+    diff = {k: got[k] - reference[k] for k in reference}
+    perf = r["performance"]
+    stages = {k: round(v["mean_ms"], 4) for k, v in perf["stages"].items()}
+    log(f"  run-tests {label} on {name}: exit {rc} (0 only if every test passes) all_passed={r['all_passed']} "
+        f"wall_s={wall:.2f}; figures " + " ".join(f"{k}={v:.6f}" for k, v in got.items())
+        + "; minus JAX's " + " ".join(f"{k}={v:+.6f}" for k, v in diff.items())
+        + f" (bound +-{SUITE_MARGIN})")
+    log(f"  run-tests {label} performance on {card}: stage ms per call {stages} fps={perf['fps']:.2f} "
+        f"(batch {perf['batch']}, marginal time between 4 and 10 back-to-back calls, CUDA events)")
+    if not all(abs(d) <= SUITE_MARGIN for d in diff.values()):
+        raise AssertionError(f"run-tests {label}: figures differ from the JAX package's by more than "
+                             f"{SUITE_MARGIN}: {diff}")
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -771,8 +927,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU",
               file=sys.stderr)
         return 1
-    from semantic_slam_master_tpu_torch.cli import evaluate_cli, run_slam_cli
-    from semantic_slam_master_tpu_torch.data import synthetic
+    from semantic_slam_master_tpu_torch.cli import evaluate_cli, run_slam_cli, run_tests_cli
+    from semantic_slam_master_tpu_torch.data import native_io, prefetch, synthetic, tum
     from semantic_slam_master_tpu_torch.models import segmenter as seg_mod
     from semantic_slam_master_tpu_torch.models.selector import select_keypoints
     from semantic_slam_master_tpu_torch.ops.kernels import build
@@ -801,7 +957,8 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip().splitlines()
-        log(smi[0])
+        card = smi[0]
+        log(card)
         kind = torch.cuda.get_device_name(0)
         log(f"  torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
             f"count {torch.cuda.device_count()} pyyaml "
@@ -818,6 +975,9 @@ def main() -> int:
         build.library()
         log(f"  nvcc built {build.LIB_PATH.name} from {len(build.sources())} sources "
             f"in {secs:.2f} s")
+        t0 = time.perf_counter()
+        decoder = native_io.decoder()
+        log(f"  native PNG loader (g++, {native_io.SOURCE.name}): {decoder} in {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
@@ -1001,6 +1161,44 @@ def main() -> int:
                 raise AssertionError(f"--loop-closure {mode}: ATE {ate} m is not finite and below "
                                      f"{CLI_LOOP_ATE_BOUND_M} m")
             record(f"cli_{mode}", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tum_root:
+        with phase("TUM input: write, decode (native and plain), pinned frame_chunks to the card"):
+            tum_input(torch, synthetic, tum, native_io, prefetch, tum_root)
+
+        with phase("TUM main path: run-slam --data-root + evaluate --data-root"), \
+                tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            reset_counts()
+            run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp,
+                                    ["--data-root", tum_root, "--sequences", TUM_NAME],
+                                    eval_argv=["--data-root", tum_root])
+            counts = read_counts()
+            ate = res["ate"]["rmse"]
+            chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
+            log(f"  frames={run['frames']} decoder={run['decoder']} run_slam_wall_s={run['wall_s']:.2f} "
+                f"fps={run['fps']} decode_s={run['decode_s']} frontend_s={run['frontend_s']} "
+                f"slam_loop_s={run['backend_s']} keyframes={run['keyframes']} mean_inliers="
+                f"{run['mean_inliers']:.1f} ate_rmse_m={ate:.6f} (bound < {TUM_ATE_BOUND_M:.6f}) "
+                f"launches={counts} frontend_chunks={chunks} ({card})")
+            if not (run["frames"] == MAIN_FRAMES and run["finite_poses"] and ate == ate and ate < TUM_ATE_BOUND_M):
+                raise AssertionError(f"TUM path: ATE {ate} m is not finite and below {TUM_ATE_BOUND_M} m")
+            for name in ("fast_score", "gather_aligned_patches"):
+                if counts[name] != 4 * chunks:
+                    raise AssertionError(f"{name} launched {counts[name]} times on the TUM path, expected "
+                                         f"{4 * chunks}")
+            record("tum", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+
+        with phase("acceptance suite: run-tests --frontend orb-pyramid (TUM) and learned (--synthetic)"), \
+                tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            reset_counts()
+            run_suite(run_tests_cli, tmp, ["--frontend", "orb-pyramid", "--data-root", tum_root, "--sequences",
+                                           TUM_NAME, "--difficulty", "normal"], "orb-pyramid", SUITE_TUM_JAX, card)
+            record("suite_orb_pyramid", read_counts(), {"fast_score": 1, "gather_aligned_patches": 1})
+            reset_counts()
+            run_suite(run_tests_cli, tmp, ["--frontend", "learned", "--config", TINY_CONFIG, "--checkpoint",
+                                           TINY_WEIGHTS, "--synthetic", "--difficulty", "normal"], "learned",
+                      SUITE_LEARNED_JAX, card)
+            record("suite_learned", read_counts(), {"gather_patches": 1})
 
     kernels = []
     for name, src, replaces, r, timed_as in (

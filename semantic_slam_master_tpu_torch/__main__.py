@@ -6,8 +6,10 @@ import importlib
 import sys
 
 COMMANDS = {
-    "run-slam": ("semantic_slam_master_tpu_torch.cli.run_slam_cli", "synthetic-world SLAM -> TUM trajectory"),
+    "run-slam": ("semantic_slam_master_tpu_torch.cli.run_slam_cli", "TUM or synthetic-world SLAM -> TUM trajectory"),
     "evaluate": ("semantic_slam_master_tpu_torch.cli.evaluate_cli", "ATE/RPE evaluation -> results.json"),
+    "run-tests": ("semantic_slam_master_tpu_torch.cli.run_tests_cli", "four-test frontend acceptance suite"),
+    "associate": ("semantic_slam_master_tpu_torch.cli.associate_cli", "RGB/depth timestamp association"),
 }
 
 

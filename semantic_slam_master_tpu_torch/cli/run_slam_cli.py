@@ -1,7 +1,15 @@
-"""Synthetic-world SLAM -> TUM trajectory (port of ``run-slam
---synthetic``).
+"""Full-sequence SLAM -> TUM trajectories (port of ``run-slam``).
 
-Renders the synthetic room (``--dynamic``: with a walking person),
+Reads each TUM sequence ``<--data-root>/<name>`` of ``--sequences``
+(default: the six reference sequences; a missing one is recorded as
+``{"status": "missing_data"}`` and the run goes on; ``--max-frames`` cuts
+each), or renders the synthetic room (``--synthetic``; ``--dynamic``:
+with a walking person). A TUM sequence is decoded as the JAX CLI decodes
+it: the ORB path takes the whole sequence at once through the threaded
+native loader (``TUMSequence.load_all_gray_depth``; the plain decoder
+where the loader does not build, named in the run's ``decoder``), a path
+that needs RGB (``--frontend learned`` or ``--semantics model``) takes
+``frame(i)`` frame by frame. Then it
 optionally derives per-pixel semantic weights (``--semantics gt`` from
 the world's labels, ``--semantics model`` from the segmenter's
 1/4-resolution labels), runs the ORB frontend in chunks of 16 frames or
@@ -12,8 +20,9 @@ RANSAC seed 0 whatever ``--seed`` is, as the JAX CLI does);
 ``--loop-closure online`` streams the run in chunks of ``--chunk-size``
 frames with a closing pass between chunks (``online.run_slam_online``).
 It writes
-``<out>/<name>_trajectory.txt`` plus ``<name>_groundtruth.txt`` for
-``evaluate``, and the run's stage times and counts as ``<name>_run.json``.
+``<out>/<name>_trajectory.txt`` (plus ``<name>_groundtruth.txt`` for a
+synthetic run; ``evaluate --data-root`` reads a TUM sequence's own), and
+the run's stage times and counts as ``<name>_run.json``.
 
 ``--checkpoint`` and ``--segmenter-checkpoint`` take ``.npz`` files of
 flax variables keyed by their flattened path (``convert.py``). Without
@@ -39,7 +48,8 @@ import torch
 from .. import convert
 from ..core import prng
 from ..core.device import resolve_device, synchronize
-from ..data import synthetic, trajectory_io
+from ..data import native_io, synthetic, trajectory_io
+from ..data.tum import TUMSequence
 from ..models import segmenter as seg_mod
 from ..slam import loop_closing, online, system, tracking
 from ..train import config as config_mod
@@ -47,6 +57,15 @@ from ..train import config as config_mod
 FRONTEND_CHUNK = 16
 LEARNED_CHUNK = 8
 SEGMENTER_CHUNK = 8
+# The JAX CLI's default --sequences: the six reference TUM sequences.
+REFERENCE_SEQUENCES = [
+    "rgbd_dataset_freiburg1_desk",
+    "rgbd_dataset_freiburg1_plant",
+    "rgbd_dataset_freiburg1_room",
+    "rgbd_dataset_freiburg3_long_office_household",
+    "rgbd_dataset_freiburg3_walking_static",
+    "rgbd_dataset_freiburg3_walking_xyz",
+]
 
 
 def _pad_frames(arrays, chunk):
@@ -105,9 +124,16 @@ def learned_features_for_frames(model, rgb_np, depth_np, device, chunk=LEARNED_C
     return _cat_features(outs, n)
 
 
+def num_frames(seq) -> int:
+    """Frames of a TUM (``num_frames()``; its ``len`` counts pairs) or
+    synthetic sequence."""
+    return seq.num_frames() if hasattr(seq, "num_frames") else len(seq)
+
+
 def render_all(seq):
-    """(rgb, gray, depth, labels) float32 / int stacks of every frame."""
-    frames = [seq.frame(i) for i in range(len(seq))]
+    """(rgb, gray, depth, labels) float32 / int stacks of every frame
+    (``frame(i)``); ``labels`` is None where the frames carry none."""
+    frames = [seq.frame(i) for i in range(num_frames(seq))]
     rgb = np.stack([f["rgb"] for f in frames]).astype(np.float32)
     gray = (0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]).astype(np.float32)
     depth = np.stack([f["depth"] for f in frames]).astype(np.float32)
@@ -175,9 +201,24 @@ def semantic_weight_maps(rgb_np, labels_np, semantics, device, model=None):
     return seg_mod.class_weights_map(torch.cat(labels, dim=0))
 
 
+def load_frames(seq, want_rgb: bool):
+    """(rgb, gray, depth, labels, decoder) of every frame, by the JAX CLI's
+    rule: a TUM sequence on a path without RGB is decoded at once by
+    ``load_all_gray_depth`` (rgb and labels None; ``decoder`` is
+    ``native_io.decoder()``), anything else frame by frame (``decoder``:
+    the per-frame PNG reader for TUM, None for the synthetic world)."""
+    tum = isinstance(seq, TUMSequence)
+    if tum and not want_rgb:
+        gray, depth = seq.load_all_gray_depth()
+        return None, gray, depth, None, native_io.decoder()
+    rgb, gray, depth, labels = render_all(seq)
+    return rgb, gray, depth, labels, {"name": "plain", "per_frame": True} if tum else None
+
+
 def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
     t0 = time.perf_counter()
-    rgb_np, gray_np, depth_np, labels_np = render_all(seq)
+    want_rgb = args.semantics == "model" or args.frontend == "learned"
+    rgb_np, gray_np, depth_np, labels_np, decoder = load_frames(seq, want_rgb)
     t_render = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -205,7 +246,8 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
     )
     # The JAX run_slam's RANSAC draws for PRNGKey(--seed), so a run pairs
     # with the JAX package's run of the same seed.
-    uniforms = torch.from_numpy(prng.slam_uniforms(args.seed, len(seq), cfg.num_hypotheses)).to(device)
+    n = num_frames(seq)
+    uniforms = torch.from_numpy(prng.slam_uniforms(args.seed, n, cfg.num_hypotheses)).to(device)
     t1 = time.perf_counter()
     loops = []
     if args.loop_closure == "online":
@@ -225,13 +267,13 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
 
     out_path.parent.mkdir(parents=True, exist_ok=True)
     trajectory_io.write_tum_trajectory(out_path, seq.timestamps, poses)
-    n = len(seq)
     return {
         "frames": n,
         "device": str(device),
         "frontend": args.frontend,
         "semantics": args.semantics,
-        "render_s": round(t_render, 3),
+        "decode_s" if decoder else "render_s": round(t_render, 3),
+        "decoder": decoder,
         "model_load_s": round(t_load, 3),
         "segmenter_s": round(t_segmenter, 3),
         "frontend_s": round(t_frontend, 3),
@@ -251,8 +293,14 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="run-slam", description=__doc__)
-    parser.add_argument("--synthetic", action="store_true", required=True,
-                        help="run on the synthetic world (the only input this port reads yet)")
+    parser.add_argument("--data-root", default="data/tum_rgbd",
+                        help="directory holding one TUM RGB-D sequence directory per name")
+    parser.add_argument("--sequences", nargs="*", default=None,
+                        help="TUM sequence names; default: the six reference sequences")
+    parser.add_argument("--max-frames", type=int, default=None,
+                        help="read at most this many frames of each TUM sequence")
+    parser.add_argument("--synthetic", action="store_true",
+                        help="run on the synthetic world instead of TUM data")
     parser.add_argument("--synthetic-frames", type=int, default=60)
     parser.add_argument("--synthetic-scale", type=float, default=1.0,
                         help="frame scale of the synthetic camera (1.0 = 640x480)")
@@ -290,15 +338,27 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     out_dir = Path(args.output_dir)
-    make = synthetic.make_dynamic_sequence if args.dynamic else synthetic.make_sequence
-    seq = make(num_frames=args.synthetic_frames, scale=args.synthetic_scale)
     out_dir.mkdir(parents=True, exist_ok=True)
-    trajectory_io.write_tum_trajectory(
-        out_dir / f"{seq.name}_groundtruth.txt", seq.timestamps, seq.poses_wc
-    )
-    result = run_sequence(seq, out_dir / f"{seq.name}_trajectory.txt", args, device)
-    (out_dir / f"{seq.name}_run.json").write_text(json.dumps(result, indent=2))
-    print(f"{seq.name}: {result}")
+    results = {}
+    if args.synthetic:
+        make = synthetic.make_dynamic_sequence if args.dynamic else synthetic.make_sequence
+        seqs = [make(num_frames=args.synthetic_frames, scale=args.synthetic_scale)]
+        trajectory_io.write_tum_trajectory(
+            out_dir / f"{seqs[0].name}_groundtruth.txt", seqs[0].timestamps, seqs[0].poses_wc
+        )
+    else:
+        seqs = []
+        for name in args.sequences or REFERENCE_SEQUENCES:
+            try:
+                seqs.append(TUMSequence(args.data_root, name, max_frames=args.max_frames))
+            except FileNotFoundError as e:
+                _warn(f"{name}: missing data ({e})")
+                results[name] = {"status": "missing_data"}
+    for seq in seqs:
+        results[seq.name] = run_sequence(seq, out_dir / f"{seq.name}_trajectory.txt", args, device)
+        (out_dir / f"{seq.name}_run.json").write_text(json.dumps(results[seq.name], indent=2))
+    for name, r in results.items():
+        print(f"{name}: {r}")
     return 0
 
 

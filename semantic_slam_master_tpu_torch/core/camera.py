@@ -34,6 +34,17 @@ TUM_FR1 = PinholeCamera(fx=517.3, fy=516.5, cx=318.6, cy=255.3)
 TUM_FR2 = PinholeCamera(fx=520.9, fy=521.0, cx=325.1, cy=249.7)
 TUM_FR3 = PinholeCamera(fx=535.4, fy=539.2, cx=320.1, cy=247.6)
 
+CAMERAS = {"freiburg1": TUM_FR1, "freiburg2": TUM_FR2, "freiburg3": TUM_FR3}
+
+
+def camera_for_sequence(sequence: str) -> PinholeCamera:
+    """Intrinsics picked from a TUM sequence name (e.g.
+    ``rgbd_dataset_freiburg1_desk``): the first ``CAMERAS`` key it contains."""
+    for key, cam in CAMERAS.items():
+        if key in sequence:
+            return cam
+    raise ValueError(f"cannot infer camera from sequence name: {sequence}")
+
 
 def project(points_cam: torch.Tensor, cam: PinholeCamera) -> torch.Tensor:
     """Camera-frame 3D points (..., 3) -> pixels (..., 2); Z clamped away

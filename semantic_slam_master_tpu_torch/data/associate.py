@@ -1,11 +1,27 @@
-"""Timestamp association (numpy copy of ``data/associate.py``'s
-``nearest_indices`` and ``associate_timestamps``)."""
+"""Timestamp association of TUM RGB-D streams (numpy copy of
+``data/associate.py``): the ``timestamp filename`` listings, nearest
+timestamps, and the file-level association of ``associate.py``'s CLI."""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+
+def read_stamped_file_list(path: str | Path) -> List[Tuple[float, str]]:
+    """``(timestamp, filename)`` rows of a TUM listing (rgb.txt, depth.txt),
+    blank lines and ``#`` comments skipped."""
+    out: List[Tuple[float, str]] = []
+    with open(path, "r") as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            out.append((float(parts[0]), parts[1]))
+    return out
 
 
 def nearest_indices(query_times: np.ndarray, ref_times: np.ndarray) -> np.ndarray:
@@ -42,3 +58,27 @@ def associate_timestamps(
             out.append((i, j))
             last_b = j
     return out
+
+
+def associate_file_lists(
+    rgb_list: Sequence[Tuple[float, str]],
+    depth_list: Sequence[Tuple[float, str]],
+    max_difference: float = 0.02,
+) -> List[Tuple[float, str, float, str]]:
+    """Rows ``(rgb_time, rgb_file, depth_time, depth_file)`` of the
+    associated frames of two listings."""
+    pairs = associate_timestamps(
+        [t for t, _ in rgb_list], [t for t, _ in depth_list], max_difference
+    )
+    return [
+        (rgb_list[i][0], rgb_list[i][1], depth_list[j][0], depth_list[j][1])
+        for i, j in pairs
+    ]
+
+
+def write_associations(
+    associations: Sequence[Tuple[float, str, float, str]], path: str | Path
+) -> None:
+    with open(path, "w") as f:
+        for rgb_t, rgb_f, depth_t, depth_f in associations:
+            f.write(f"{rgb_t} {rgb_f} {depth_t} {depth_f}\n")

@@ -1,11 +1,18 @@
-"""Batched image primitives (port of ``ops/image.py``): blur, pooling and
-the antialiased bilinear resize of ``jax.image.resize``."""
+"""Batched image primitives (port of ``ops/image.py``): luma, blur, pooling
+and the antialiased bilinear resize of ``jax.image.resize``."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """ITU-R 601 luma of (..., 3) RGB as one product with the weights, as
+    the JAX ``rgb_to_gray`` computes it."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype, device=rgb.device)
+    return rgb @ w
 
 
 def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:

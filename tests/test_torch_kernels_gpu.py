@@ -140,6 +140,32 @@ def test_wrappers_count_launches(cuda):
     assert [c.launches for c in counters] == [b + 1 for b in before]
 
 
+def test_suite_adapters_count_launches(cuda):
+    """The acceptance suite's adapters on the card: one pyramid ORB extract
+    launches each ORB kernel once per level (4), one single-scale ORB
+    extract once each, and one learned extract with sub-patch refinement
+    gathers once."""
+    import numpy as np
+
+    from semantic_slam_master_tpu_torch.eval import frontend_tests
+    from semantic_slam_master_tpu_torch.models.frontend import tiny_frontend
+
+    rgb = np.random.default_rng(0).uniform(size=(2, 240, 320, 3)).astype(np.float32)
+    orb_counters = (kfast.fast_score, kpatch.gather_aligned_patches)
+    for adapter, per_extract in ((frontend_tests.pyramid_orb_adapter(num_keypoints=200, device=cuda), 4),
+                                 (frontend_tests.orb_adapter(num_keypoints=200, device=cuda), 1)):
+        before = [c.launches for c in orb_counters]
+        feats = adapter.extract(rgb)
+        assert feats["xy"].shape == (2, 200, 2) and feats["valid"].any()
+        assert [c.launches for c in orb_counters] == [b + per_extract for b in before]
+    model = tiny_frontend(subpatch_refine=True, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    adapter = frontend_tests.learned_adapter(model.to(cuda).eval(), input_size=224)
+    before = kgather.gather_patches.launches
+    feats = adapter.extract(rgb)
+    assert kgather.gather_patches.launches == before + 1
+    assert feats["xy"].shape == (2, model.num_keypoints, 2)
+
+
 def test_cpu_tensors_take_the_plain_version():
     before = kfast.fast_score.launches
     img = torch.rand((1, 40, 40))
