@@ -16,7 +16,8 @@ device synchronised at the end of each):
    random frames at the path's shapes and ragged ones (keypoints on every
    clamp edge) and on the path's own inputs, where every pixel failing
    the 4-point test must score 0; gather_patches in both modes (the
-   learned path's 8x500 windows of radius 10, the padded 32x32 mode at
+   learned path's 8x500 windows of radius 10, the train steps' 8x500 at
+   448 px and 8x192 at 224 px, the padded 32x32 mode at
    N=8192, ragged cases with B N % 4 != 0, N = 1, centres on every clamp
    edge and non-finite or huge centres). Each is
    timed with CUDA events (median of 20 launches after warm-up, L2
@@ -111,6 +112,31 @@ device synchronised at the end of each):
    package's CPU figures (SUITE_*_JAX); the ORB kernels launched on the
    first, gather_patches on the second; the performance test's stage
    times and fps printed beside the card's name and power limit.
+21. resumed training -- ``train --resume weights/frontend_tiny_state.npz
+   --epochs 67`` (the trained tiny frontend's epoch-65 state, exported
+   from its orbax checkpoint) on a YAML derived from
+   configs/train_tiny_synthetic.yaml (17 frames of one world: 2 steps an
+   epoch), epochs 66-67: every per-epoch figure in the JSONL within
+   RESUME_GAP_BOUND of the JAX CLI's CPU run of the same YAML
+   (RESUME_JAX), no step skipped, gather_patches launched twice a step.
+22. a checkpoint written and read -- ``train --init-from
+   weights/frontend_tiny.npz`` for 1 epoch with validation writes
+   best_model.npz; ``run-slam --frontend learned --checkpoint`` it, then
+   ``evaluate``: ATE below TINY_ATE_BOUND_M.
+23. ViT-S/16 at full width -- configs/train_vits_synthetic_long.yaml
+   (448 px, 500 keypoints, 12 layers x 384, backbone trained, hard and
+   cross-image negatives, 8 pairs a batch) with its data cut to
+   VITS_FRAMES frames of one world (1 step an epoch), VITS_EPOCHS epochs
+   from seeded weights (their sum |w| checked first): no step skipped,
+   every figure finite (``hard`` included), gather_patches twice a step,
+   each step's time (CUDA events) and the peak
+   ``torch.cuda.max_memory_allocated``; the first step's forward on two
+   of its pairs, card against the host's CPU from the same weights.
+24. segmenter training -- ``train-segmenter`` (300 steps, 120x160, width
+   32, seed 0): final loss and accuracy within a band of the JAX CLI's
+   CPU figures over seeds 0-3; then ``run-slam --dynamic --seed 1
+   --semantics model --segmenter-checkpoint`` it: ATE below twice the
+   worst of the JAX package's own 300-step segmenters.
 
 Every path that runs a kernel resets the launch counters just before it
 and reads them just after; the kernels line sums them (``launches``)
@@ -129,8 +155,10 @@ import contextlib
 import copy
 import ctypes.util
 import importlib.util
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -234,6 +262,62 @@ SUITE_TUM_JAX = {"repeatability_1": 0.915320, "repeatability_5": 0.854339, "inli
                  "precision": 0.692627, "tracking_1": 1.0, "tracking_5": 1.0}
 SUITE_LEARNED_JAX = {"repeatability_1": 0.732786, "repeatability_5": 0.788204, "inlier_ratio": 0.793379,
                      "precision": 0.790295, "tracking_1": 1.0, "tracking_5": 1.0}
+# Training (phases 21-24). The YAMLs are derived at run time from the
+# committed configs (derive_config; ``python3 chip_smoke.py --write-config
+# KIND OUT`` writes the same file without a card).
+TINY_STATE = "weights/frontend_tiny_state.npz"  # artifacts/frontend_tiny's epoch-65 state
+# Phase 21: the JAX CLI's per-epoch figures for the derived "resume" YAML
+# (configs/train_tiny_synthetic.yaml, 17 frames of one world: 2 steps an
+# epoch), from a CPU run of
+#   python3 chip_smoke.py --write-config resume R.yaml
+#   JAX_PLATFORMS=cpu python -m semantic_slam_master_tpu train --config R.yaml \
+#       --resume artifacts/frontend_tiny/best_model --epochs 67 --jsonl-log J.jsonl
+RESUME_JAX = {
+    66: {"activation": 0.0006003701855661348, "calibration": 0.02071292046457529, "desc": 0.5827683806419373,
+         "descriptor_variance": 0.015624419320374727, "edge": -0.9661192297935486,
+         "expected_error": 0.0870591588318348, "localization": 0.6980366706848145, "loss": 5.0895819664001465,
+         "max_saliency": 0.8993938565254211, "mean_saliency": 0.3743050843477249, "num_matches": 108.3125,
+         "peakiness": 0.035451389849185944, "repeat": 0.025110822170972824, "saliency_variance": 0.032160867005586624,
+         "skipped": 0.0, "sparsity": 0.0005694776773452759, "variance": 0.0},
+    67: {"activation": 0.0002627247667987831, "calibration": 0.016629776917397976, "desc": 0.5481606721878052,
+         "descriptor_variance": 0.015624841209501028, "edge": -0.9678350687026978,
+         "expected_error": 0.0877896174788475, "localization": 0.6848908364772797, "loss": 4.797025203704834,
+         "max_saliency": 0.9103991687297821, "mean_saliency": 0.3659706711769104, "num_matches": 108.75,
+         "peakiness": 0.03563482686877251, "repeat": 0.022926748730242252, "saliency_variance": 0.03165819123387337,
+         "skipped": 0.0, "sparsity": 0.0, "variance": 0.0},
+}
+# A figure x is held as |card - JAX| / (|JAX| + 0.01). The bf16 gap between
+# the two packages on the CPU in that measure: 0.0499 for the resumed CLI
+# runs of tests/test_torch_train_cli.py (64 px), 0.012599 for this YAML
+# (the port's CLI with --device cpu beside the JAX run above). The card is
+# held to twice the tests' gap.
+RESUME_GAP_CPU_TEST = 0.0499
+RESUME_GAP_CPU_PHASE = 0.012599
+RESUME_GAP_BOUND = 2 * RESUME_GAP_CPU_TEST
+# Phase 23: configs/train_vits_synthetic_long.yaml at full width with the
+# data cut to 9 frames of one world (8 pairs: one step an epoch), 3 epochs.
+# The seeded weights (training.seed 7) sum to this in |w| (float64, the
+# state_dict, drawn on the CPU by PyTorch 2.13).
+VITS_FRAMES = 9
+VITS_EPOCHS = 3
+VITS_WEIGHT_ABS_SUM = 877944.3491542276
+VITS_CPU_PAIRS = 2  # the card-against-CPU forward: 2 pairs, so cross-image negatives run
+# Phase 24: train-segmenter --steps 300 --height 120 --width 160
+# --model-width 32, JAX on the CPU over seeds 0-3: final loss 0.1011,
+# 0.0975, 0.1090, 0.0628 and accuracy 0.964, 0.969, 0.965, 0.979; then
+# run-slam --synthetic --dynamic --seed 1 --semantics model
+# --segmenter-checkpoint <that seed's>: ATE 0.025214, 0.579714, 0.652049,
+# 0.633786 m (the 300-step segmenter misses the walking person on three of
+# the four). The port's init is drawn by PyTorch, so its run is held to a
+# band: accuracy at least the worst JAX seed's less 0.03, loss at most
+# twice the worst; ATE below twice the worst JAX seed's.
+SEG_TRAIN_STEPS = 300
+SEG_TRAIN_JAX_LOSS = (0.1011, 0.0975, 0.1090, 0.0628)
+SEG_TRAIN_JAX_ACC = (0.964, 0.969, 0.965, 0.979)
+SEG_TRAIN_ACC_MIN = min(SEG_TRAIN_JAX_ACC) - 0.03
+SEG_TRAIN_LOSS_MAX = 2 * max(SEG_TRAIN_JAX_LOSS)
+SEG_TRAIN_JAX_ATE_M = (0.025214, 0.579714, 0.652049, 0.633786)
+SEG_TRAIN_ATE_BOUND_M = 2 * max(SEG_TRAIN_JAX_ATE_M)
 TARGET_TOTAL_S = 600
 # gather_patches cases: (wrapper, (B, H, W), N, radius, centres). The first
 # is the learned path's call per 8-frame chunk (500 keypoints on distinct
@@ -244,6 +328,8 @@ TARGET_TOTAL_S = 600
 # block nor of 4 (a ragged last block); N = 1 is one warp.
 GATHER_CASES = [
     ("gather_patches", (8, 480, 640), 500, 10, "grid"),
+    ("gather_patches", (8, 448, 448), 500, 10, "grid"),  # a ViT-S/16 train step's call (phase 23)
+    ("gather_patches", (8, 224, 224), 192, 10, "grid"),  # a tiny-frontend train step's call (21, 22)
     ("gather_patches_padded", (1, 480, 640), 8192, 15, "random"),
     ("gather_patches", (2, 83, 300), 37, 10, "random"),
     ("gather_patches_padded", (2, 83, 300), 37, 15, "random"),
@@ -920,6 +1006,247 @@ def run_suite(run_tests_cli, tmp, argv, label: str, reference: dict, card: str) 
     return r
 
 
+def derive_config(kind: str, save_dir: str, out: str) -> str:
+    """Write the YAML a training phase runs: ``resume`` (phase 21) and
+    ``init`` (22, validation every epoch) cut configs/train_tiny_synthetic.yaml's
+    data to 17 frames of one world (2 steps an epoch), ``vits`` (23) cuts
+    configs/train_vits_synthetic_long.yaml's to VITS_FRAMES of one world (1
+    step); widths, losses and optimiser stay. Returns ``out``."""
+    import yaml
+
+    from semantic_slam_master_tpu_torch.train import config as config_mod
+
+    if kind == "vits":
+        src, frames = LEARNED_CONFIG, VITS_FRAMES
+    elif kind in ("resume", "init"):
+        src, frames = TINY_CONFIG, 17
+    else:
+        raise ValueError(f"unknown config kind {kind!r}")
+    over = {"dataset": {"synthetic_frames": frames, "synthetic_worlds": 1}, "training": {"save_dir": save_dir}}
+    if kind == "init":
+        over["training"]["val_interval"] = 1
+    cfg = config_mod.load_config(src, over)
+    with open(out, "w") as f:
+        f.write(yaml.safe_dump(config_mod.to_dict(cfg), sort_keys=True))
+    return out
+
+
+def figure_gap(got: dict, want: dict) -> tuple:
+    """Largest |got - want| / (|want| + 0.01) over ``want``'s figures, and its key."""
+    return max((abs(got[k] - v) / (abs(v) + 0.01), k) for k, v in want.items())
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_phase_launches(counts: dict, steps: int, name: str) -> None:
+    """gather_patches launches twice per train or eval step (one refine_at
+    per frame of the pair) and nothing else launches in training."""
+    want = {"fast_score": 0, "gather_aligned_patches": 0, "gather_patches": 2 * steps}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+
+
+def train_vits(torch, train_cli, trainer, config_mod, tmp, reset_counts, read_counts) -> dict:
+    """Phase 23: the full-width ViT-S/16 recipe on the card, data cut to
+    one step an epoch; its first step's figures against the port's forward
+    on the CPU from the same seeded weights and batch."""
+    cfg_path = derive_config("vits", os.path.join(tmp, "vits"), os.path.join(tmp, "vits.yaml"))
+    cfg = config_mod.load_config(cfg_path)
+    cfg.training.epochs = VITS_EPOCHS
+    cpu_model, _ = trainer.create_train_state(cfg, 16, device="cpu")
+    abs_sum = sum(float(v.double().abs().sum()) for v in cpu_model.state_dict().values())
+    log(f"  seeded weights (training.seed {cfg.training.seed}): sum |w| = {abs_sum!r} (expected "
+        f"{VITS_WEIGHT_ABS_SUM!r}, PyTorch 2.13 on the CPU)")
+    if abs(abs_sum - VITS_WEIGHT_ABS_SUM) > 1e-6 * VITS_WEIGHT_ABS_SUM:
+        raise AssertionError("the seeded ViT-S/16 weights differ from the recorded ones: a PyTorch RNG change")
+    t0 = time.perf_counter()
+    batches = train_cli._synthetic_pair_batches(cfg, split_seed=0)
+    render_s = time.perf_counter() - t0
+    records, step_s = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit(cfg, batches, None, steps_per_epoch=16, log_fn=records.append, device="cuda", step_times=step_s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    train_phase_launches(counts, VITS_EPOCHS, "ViT-S/16 training")
+    for r in records:
+        bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
+        if r["skipped"] != 0.0 or bad or "hard" not in r:
+            raise AssertionError(f"ViT-S/16 epoch {r['epoch']}: skipped={r['skipped']} non-finite={bad} "
+                                 f"hard present={'hard' in r}")
+    # The first step's forward (the seeded weights, the first batch's first
+    # VITS_CPU_PAIRS pairs) on the card and on the host's CPU, bf16 both.
+    half = {k: v[:VITS_CPU_PAIRS] for k, v in next(iter(batches(1))).items()}
+    figs, secs = {}, {}
+    for device, model in (("cpu", cpu_model), ("cuda", copy.deepcopy(cpu_model).to("cuda"))):
+        t0 = time.perf_counter()
+        b = trainer.to_device(half, device)
+        with torch.no_grad():
+            bundle, metrics = trainer._forward_pair(model, b["rgb1"], b["rgb2"], cfg, b)
+        figs[device] = {"loss": float(bundle.total), **{k: float(v) for k, v in bundle.components.items()},
+                        **{k: float(v) for k, v in metrics.items()}}
+        secs[device] = time.perf_counter() - t0
+    gap, key = figure_gap(figs["cuda"], figs["cpu"])
+    log(f"  first step's forward on {VITS_CPU_PAIRS} pairs, card against the host CPU (same seeded weights, "
+        f"bf16 both): largest gap {gap:.4g} at {key} (bound {RESUME_GAP_BOUND:.4g}); CPU {secs['cpu']:.1f} s, "
+        f"card {secs['cuda']:.2f} s; card {figs['cuda']}")
+    if not gap <= RESUME_GAP_BOUND:
+        raise AssertionError(f"ViT-S/16 first forward: {key} card {figs['cuda'][key]} vs CPU {figs['cpu'][key]}")
+    return {"records": records, "step_s": step_s, "wall_s": wall, "peak_bytes": peak, "counts": counts,
+            "render_s": render_s, "gap": gap, "split_ms": vits_step_split(torch, trainer, cfg, next(iter(batches(1))))}
+
+
+def vits_step_split(torch, trainer, cfg, batch, repeats: int = 3) -> dict:
+    """Where a warm ViT-S/16 train step's time goes: the forward pair, the
+    backward (``autograd.grad``) and the optimiser update with its two host
+    syncs, each between CUDA events, median of ``repeats`` steps on a
+    fresh seeded state (after one warm-up step)."""
+    model, state = trainer.create_train_state(cfg, 16, device="cuda")
+    tx = trainer.build_optimizer(cfg, 16, trainer.flax_order(state.trainable))
+    b = trainer.to_device(batch, "cuda")
+    state, _ = trainer.make_train_step(model, cfg, tx)(state, b)
+    names = list(state.trainable)
+    rows = []
+    for _ in range(repeats):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        with torch.enable_grad():
+            bundle, _ = trainer._forward_pair(model, b["rgb1"], b["rgb2"], cfg, b)
+            ev[1].record()
+            grads = torch.autograd.grad(bundle.total, [state.trainable[k] for k in names], allow_unused=True)
+        ev[2].record()
+        grads = {k: torch.zeros_like(state.trainable[k]) if g is None else g for k, g in zip(names, grads)}
+        tx.update(grads, state.opt_state, state.trainable)
+        ev[3].record()
+        torch.cuda.synchronize()
+        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    med = sorted(rows, key=lambda r: sum(r))[len(rows) // 2]
+    return {"forward": med[0], "backward": med[1], "optimizer": med[2]}
+
+
+def training_phases(torch, run_slam_cli, evaluate_cli, config_mod, record, reset_counts, read_counts, card) -> None:
+    """Phases 21-24 (the module docstring): train, resume, checkpoint and
+    segmenter training on the card."""
+    from semantic_slam_master_tpu_torch.cli import train_cli, train_segmenter_cli
+    from semantic_slam_master_tpu_torch.train import trainer
+
+    with phase("21. resume the trained tiny frontend: train --resume weights/frontend_tiny_state.npz --epochs 67"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = derive_config("resume", os.path.join(tmp, "save"), os.path.join(tmp, "resume.yaml"))
+        log_path = os.path.join(tmp, "resume.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        train_cli.main(["--config", cfg_path, "--resume", TINY_STATE, "--epochs", "67", "--jsonl-log", log_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        rows = read_jsonl(log_path)
+        train_phase_launches(counts, 4, "resumed tiny training")
+        record("train_resume_tiny", counts, {"gather_patches": 8})
+        if [r["epoch"] for r in rows] != [66, 67]:
+            raise AssertionError(f"resume ran epochs {[r['epoch'] for r in rows]}, expected 66 and 67")
+        for r in rows:
+            gap, key = figure_gap(r, RESUME_JAX[r["epoch"]])
+            log(f"  epoch {r['epoch']}: loss={r['loss']:.6f} (JAX {RESUME_JAX[r['epoch']]['loss']:.6f}) "
+                f"largest gap {gap:.4g} at {key} (bound {RESUME_GAP_BOUND:.4g} = 2 x the CPU tests' bf16 gap "
+                f"{RESUME_GAP_CPU_TEST}; this YAML's CPU gap {RESUME_GAP_CPU_PHASE}) figures={r}")
+            if not gap <= RESUME_GAP_BOUND or r["skipped"] != 0.0:
+                raise AssertionError(f"resumed epoch {r['epoch']}: {key} {r[key]} vs JAX "
+                                     f"{RESUME_JAX[r['epoch']][key]}, skipped {r['skipped']}")
+        log(f"  4 steps (224 px, 8 pairs, 4-layer 128-wide ViT, 192 keypoints) wall {wall:.2f} s (host clock, "
+            f"data render and first-call warm-up included), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+
+    with phase("22. train --init-from weights/frontend_tiny.npz (1 epoch, val) then run-slam --checkpoint best_model"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        save = os.path.join(tmp, "save")
+        cfg_path = derive_config("init", save, os.path.join(tmp, "init.yaml"))
+        reset_counts()
+        train_cli.main(["--config", cfg_path, "--init-from", TINY_WEIGHTS, "--epochs", "1"])
+        counts = read_counts()
+        train_phase_launches(counts, 4, "tiny training with validation")
+        record("train_init_tiny", counts, {"gather_patches": 8})
+        ckpt = os.path.join(save, "best_model.npz")
+        with open(os.path.join(save, "best_model.meta.json")) as f:
+            meta = json.load(f)
+        with np.load(ckpt) as z:
+            keys = len(z.files)
+        log(f"  wrote {ckpt}: {os.path.getsize(ckpt)} bytes, {keys} arrays, meta {meta}")
+        reset_counts()
+        run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, os.path.join(tmp, "slam"), [
+            "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--frontend", "learned",
+            "--train-config", TINY_CONFIG, "--checkpoint", ckpt])
+        counts = read_counts()
+        ate = res["ate"]["rmse"]
+        chunks = -(-MAIN_FRAMES // run_slam_cli.LEARNED_CHUNK)
+        record("learned_tiny_trained_here", counts, {"gather_patches": chunks})
+        log(f"  run-slam with the card-written checkpoint: ate_rmse_m={ate:.6f} (bound < {TINY_ATE_BOUND_M:.6f}) "
+            f"fps={run['fps']} launches={counts}")
+        if not (run["finite_poses"] and ate == ate and ate < TINY_ATE_BOUND_M):
+            raise AssertionError(f"checkpoint written by train: ATE {ate} m not below {TINY_ATE_BOUND_M} m")
+
+    with phase(f"23. ViT-S/16 at full width: {VITS_EPOCHS} epochs of one step (8 pairs at 448 px)"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        vits = train_vits(torch, train_cli, trainer, config_mod, tmp, reset_counts, read_counts)
+        record("train_vits", vits["counts"], {"gather_patches": 2 * VITS_EPOCHS})
+        for r in vits["records"]:
+            log(f"  epoch {r['epoch']}: loss={r['loss']:.6f} desc={r['desc']:.6f} hard={r['hard']:.6f} "
+                f"localization={r.get('localization', 0.0):.6f} skipped={r['skipped']} figures={r}")
+        log("  warm train step split, ms (CUDA events, median of 3): "
+            + " ".join(f"{k}={v:.2f}" for k, v in vits["split_ms"].items()))
+        log(f"  train step s (CUDA events, data on the card): {[round(x, 4) for x in vits['step_s']]}; "
+            f"peak torch.cuda.max_memory_allocated {vits['peak_bytes']} bytes "
+            f"({vits['peak_bytes'] / 2**30:.2f} GiB); fit wall {vits['wall_s']:.2f} s; render "
+            f"{vits['render_s']:.2f} s ({card})")
+
+    with phase(f"24. train-segmenter --steps {SEG_TRAIN_STEPS} (120x160, width 32, seed 0), then run-slam "
+               f"--dynamic --seed {DYNAMIC_SEED} --semantics model"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_segmenter_cli.main(["--steps", str(SEG_TRAIN_STEPS), "--height", "120", "--width", "160",
+                                      "--model-width", "32", "--seed", "0", "--output", os.path.join(tmp, "seg")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        log("  " + text.strip().replace("\n", "\n  "))
+        m = re.search(r"final loss=([0-9.]+), acc=([0-9.]+)", text)
+        loss, acc = float(m.group(1)), float(m.group(2))
+        counts = read_counts()
+        if any(counts.values()):
+            raise AssertionError(f"segmenter training launched {counts}")
+        log(f"  final loss {loss} (bound <= {SEG_TRAIN_LOSS_MAX:.4f}; JAX seeds 0-3 {SEG_TRAIN_JAX_LOSS}) accuracy "
+            f"{acc} (bound >= {SEG_TRAIN_ACC_MIN:.4f}; JAX {SEG_TRAIN_JAX_ACC}); {SEG_TRAIN_STEPS} steps in "
+            f"{wall:.2f} s host clock, render included ({card})")
+        if not (loss <= SEG_TRAIN_LOSS_MAX and acc >= SEG_TRAIN_ACC_MIN):
+            raise AssertionError(f"segmenter trained on the card: loss {loss}, accuracy {acc} outside the band")
+        reset_counts()
+        run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, os.path.join(tmp, "slam"), [
+            "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--dynamic", "--semantics", "model",
+            "--segmenter-checkpoint", os.path.join(tmp, "seg.npz")], seed=DYNAMIC_SEED)
+        counts = read_counts()
+        ate = res["ate"]["rmse"]
+        chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
+        record("dynamic_model_trained_here", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+        log(f"  run-slam --semantics model with it: ate_rmse_m={ate:.6f} (bound < {SEG_TRAIN_ATE_BOUND_M:.6f} = "
+            f"2 x the worst JAX seed; JAX seeds 0-3 {SEG_TRAIN_JAX_ATE_M}; the committed segmenter's bound "
+            f"{SEG_MODEL_ATE_BOUND_M:.6f}) launches={counts}")
+        if not (ate == ate and ate < SEG_TRAIN_ATE_BOUND_M):
+            raise AssertionError(f"card-trained segmenter: ATE {ate} m not below {SEG_TRAIN_ATE_BOUND_M} m")
+
+
+
 def main() -> int:
     import torch
 
@@ -1200,6 +1527,8 @@ def main() -> int:
                       SUITE_LEARNED_JAX, card)
             record("suite_learned", read_counts(), {"gather_patches": 1})
 
+    training_phases(torch, run_slam_cli, evaluate_cli, config_mod, record, reset_counts, read_counts, card)
+
     kernels = []
     for name, src, replaces, r, timed_as in (
         ("fast_score", "semantic_slam_master_tpu_torch/csrc/fast_score.cu",
@@ -1234,4 +1563,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--write-config", nargs=2, metavar=("KIND", "OUT"),
+                        help="write a training phase's derived YAML (resume, init or vits; save_dir "
+                        "'checkpoints') and exit, without a card")
+    args = parser.parse_args()
+    if args.write_config:
+        derive_config(args.write_config[0], "checkpoints", args.write_config[1])
+        sys.exit(0)
     sys.exit(main())

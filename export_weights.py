@@ -14,7 +14,12 @@ and writes their ``params`` and ``batch_stats`` (no optimizer state, PRNG
 key or step), float32 as restored, through the port's ``convert.save_npz``
 to ``<out-dir>/segmenter.npz`` and ``<out-dir>/frontend_tiny.npz``. The
 port loads them with ``run-slam --segmenter-checkpoint`` and
-``--checkpoint``. This is the one script outside the tests that imports
+``--checkpoint``. It also writes the tiny frontend's whole training state
+(``convert.train_state_tree``: params, batch_stats, Adam's moments, both
+optimiser counts, step and the PRNG key) to
+``<out-dir>/frontend_tiny_state.npz``, with the checkpoint's meta (epoch,
+val_loss) in ``frontend_tiny_state.meta.json``: the port's ``train
+--resume`` reads it. This is the one script outside the tests that imports
 both packages; it needs JAX, flax and orbax, which the card's machine
 does not have, so the files are committed.
 """
@@ -22,6 +27,7 @@ does not have, so the files are committed.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from pathlib import Path
 
@@ -47,22 +53,26 @@ def segmenter_variables() -> dict:
     return {"params": jax.device_get(seg_trainer.load_checkpoint(str(SEGMENTER)))}
 
 
-def frontend_tiny_variables() -> dict:
-    """The trained tiny frontend's ``{"params", "batch_stats"}``."""
+def frontend_tiny_state():
+    """The trained tiny frontend's restored ``TrainState`` and its meta."""
     cfg = jconfig.load_config(str(TINY_CONFIG))
     _, state = trainer.create_train_state(cfg, steps_per_epoch=1)
-    state, _ = trainer.restore_checkpoint(str(FRONTEND_TINY), state)
-    return jax.device_get({
-        "params": trainer.merge_params(state.trainable, state.frozen),
-        "batch_stats": state.batch_stats,
-    })
+    state, meta = trainer.restore_checkpoint(str(FRONTEND_TINY), state)
+    return jax.device_get(state), meta
+
+
+def frontend_tiny_variables(state=None) -> dict:
+    """The trained tiny frontend's ``{"params", "batch_stats"}``."""
+    state = frontend_tiny_state()[0] if state is None else state
+    return {"params": trainer.merge_params(state.trainable, state.frozen), "batch_stats": state.batch_stats}
 
 
 def export(out_dir: Path) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     written = {}
+    state, meta = frontend_tiny_state()
     for name, variables in (("segmenter", segmenter_variables()),
-                            ("frontend_tiny", frontend_tiny_variables())):
+                            ("frontend_tiny", frontend_tiny_variables(state))):
         flat = convert.flatten_tree(variables)
         bad = {k: a.dtype for k, a in flat.items() if a.dtype != np.float32}
         if bad:
@@ -70,6 +80,11 @@ def export(out_dir: Path) -> dict:
         path = out_dir / f"{name}.npz"
         convert.save_npz(path, variables)
         written[name] = (path, len(flat), sum(a.nbytes for a in flat.values()))
+    flat = convert.train_state_tree(state)
+    path = out_dir / "frontend_tiny_state.npz"
+    np.savez(path, **flat)
+    (out_dir / "frontend_tiny_state.meta.json").write_text(json.dumps({**meta, "params_only": False}))
+    written["frontend_tiny_state"] = (path, len(flat), sum(a.nbytes for a in flat.values()))
     return written
 
 
@@ -78,7 +93,7 @@ def main(argv=None) -> int:
     parser.add_argument("--out-dir", default=str(REPO / "weights"))
     args = parser.parse_args(argv)
     for name, (path, n, nbytes) in export(Path(args.out_dir)).items():
-        print(f"{name}: {path} {n} arrays, {nbytes} bytes of float32, "
+        print(f"{name}: {path} {n} arrays, {nbytes} bytes, "
               f"{path.stat().st_size} bytes on disk")
     return 0
 

@@ -10,6 +10,8 @@ COMMANDS = {
     "evaluate": ("semantic_slam_master_tpu_torch.cli.evaluate_cli", "ATE/RPE evaluation -> results.json"),
     "run-tests": ("semantic_slam_master_tpu_torch.cli.run_tests_cli", "four-test frontend acceptance suite"),
     "associate": ("semantic_slam_master_tpu_torch.cli.associate_cli", "RGB/depth timestamp association"),
+    "train": ("semantic_slam_master_tpu_torch.cli.train_cli", "train the learned frontend"),
+    "train-segmenter": ("semantic_slam_master_tpu_torch.cli.train_segmenter_cli", "train the segmentation CNN on synthetic labels"),
 }
 
 

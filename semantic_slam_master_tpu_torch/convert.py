@@ -12,6 +12,18 @@ into ``state_dict``s of ``models.frontend.LearnedFrontend`` and
 -> (out, in); conv kernels HWIO -> OIHW; the selector's
 ``conv1_kernel`` stays (3, 3, C, hid); norm ``scale`` -> ``weight``;
 BatchNorm ``batch_stats`` mean / var -> ``running_mean`` / ``running_var``.
+``frontend_tree`` / ``segmenter_tree`` go back (a port ``state_dict`` ->
+flax-path arrays in flax's layout).
+
+Training state: ``train_state_tree`` flattens the JAX trainer's
+``TrainState`` (the optax ``chain(clip, adamw)`` state inside it) into
+the keys the port's trainer checkpoints under: ``params/...``,
+``batch_stats/...``, ``opt_state/mu/...`` and ``opt_state/nu/...`` (flax
+paths, flax layout), ``opt_state/adam_count``,
+``opt_state/schedule_count``, ``step`` and ``rng`` (JAX's key words,
+carried unchanged); ``jax_train_state_fields`` rebuilds the JAX fields
+from such a file on a template state. Loading weights ignores the
+optimiser keys, so ``run-slam --checkpoint`` reads a trainer checkpoint.
 """
 
 from __future__ import annotations
@@ -109,10 +121,16 @@ def save_npz(path, tree) -> None:
     np.savez(path, **flatten_tree(tree))
 
 
+# Keys of a trainer checkpoint that are not model weights.
+TRAIN_STATE_KEYS = ("opt_state", "step", "rng")
+
+
 def _convert(flat: dict, renames) -> dict:
     sd = {}
     for key, arr in flat.items():
         parts = key.split("/")
+        if parts[0] in TRAIN_STATE_KEYS:
+            continue
         if parts[0] in ("params", "batch_stats"):
             parts = parts[1:]
         names = []
@@ -140,3 +158,115 @@ def segmenter_state_dict(source) -> dict:
     """flax ``SemanticSegmenter`` params (bare or under ``params``) ->
     ``state_dict`` of the port's ``SemanticSegmenter``."""
     return _convert(load_tree(source), _SEGMENTER_RENAMES)
+
+
+def _flax_names(name: str, kind: str) -> tuple:
+    """A port parameter or buffer name -> (collection, flax path, leaf)."""
+    parts = name.split(".")
+    mods, leaf = parts[:-1], parts[-1]
+    out = []
+    i = 0
+    while i < len(mods):
+        p = mods[i]
+        if i + 1 < len(mods) and mods[i + 1].isdigit():
+            prefix = {"frontend": {"blocks": "block", "res": "res"}, "segmenter": {"blocks": "ConvBlock_"}}[kind]
+            out.append(prefix[p] + mods[i + 1])
+            i += 2
+            continue
+        if kind == "frontend" and out[-1:] == ["offset_head"]:
+            p = "Dense_0" if p == "ctx" else f"Conv_{int(p[4:]) - 1}"
+        elif kind == "segmenter":
+            p = {"conv": "Conv_0", "norm": "GroupNorm_0"}.get(p, p)
+        out.append(p)
+        i += 1
+    collection = "batch_stats" if leaf in ("running_mean", "running_var") else "params"
+    return collection, "/".join(out), leaf
+
+
+def flax_key(name: str, shape, kind: str = "frontend") -> str:
+    """The flax path (``params/...`` or ``batch_stats/...``) of a port name."""
+    collection, path, leaf = _flax_names(name, kind)
+    leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+    if leaf == "weight":
+        leaf = "scale" if len(shape) == 1 else "kernel"
+    return f"{collection}/{path}/{leaf}"
+
+
+def to_flax_layout(a: np.ndarray) -> np.ndarray:
+    """A port weight (out, in) or OIHW -> flax's (in, out) or HWIO."""
+    return a.T if a.ndim == 2 else np.transpose(a, (2, 3, 1, 0))
+
+
+def _tree(state_dict: dict, kind: str) -> dict:
+    flat = {}
+    for name, t in state_dict.items():
+        key = flax_key(name, tuple(t.shape), kind)
+        a = t.detach().float().cpu().numpy()
+        flat[key] = np.array(to_flax_layout(a) if key.endswith("/kernel") else a, order="C")
+    return flat
+
+
+def frontend_tree(state_dict: dict) -> dict:
+    """``LearnedFrontend.state_dict()`` -> {flax path: f32 array}."""
+    return _tree(state_dict, "frontend")
+
+
+def segmenter_tree(state_dict: dict) -> dict:
+    """``SemanticSegmenter.state_dict()`` -> {flax path: f32 array}."""
+    return _tree(state_dict, "segmenter")
+
+
+def train_state_tree(state) -> dict:
+    """The JAX trainer's ``TrainState`` (numpy leaves) -> the flat keys of a
+    port trainer checkpoint. Its optimiser state is optax's
+    ``(clip, (ScaleByAdamState, add_decayed_weights, ScaleByScheduleState))``;
+    the two counts must agree."""
+    adam, sched = state.opt_state[1][0], state.opt_state[1][2]
+    adam_count, schedule_count = int(np.asarray(adam.count)), int(np.asarray(sched.count))
+    if adam_count != schedule_count:
+        raise ValueError(f"optimiser counts differ: adam {adam_count}, schedule {schedule_count}")
+    flat = flatten_tree({
+        "params": {**state.trainable, **state.frozen},
+        "batch_stats": state.batch_stats,
+        "opt_state": {"mu": adam.mu, "nu": adam.nu},
+    })
+    flat["opt_state/adam_count"] = np.asarray(adam_count, np.int32)
+    flat["opt_state/schedule_count"] = np.asarray(schedule_count, np.int32)
+    flat["step"] = np.asarray(state.step, np.int32)
+    flat["rng"] = np.asarray(state.rng, np.uint32)
+    return flat
+
+
+def unflatten(flat: dict, prefix: str) -> dict:
+    """{"prefix/a/b": x} -> {"a": {"b": x}}."""
+    out: dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        node = out
+        parts = key[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def jax_train_state_fields(flat: dict, template) -> dict:
+    """Fields for ``dataclasses.replace(template, **fields)`` of a JAX
+    ``TrainState`` from a port trainer checkpoint (numpy leaves; the
+    template gives the trainable/frozen split and optax's state types)."""
+    params = unflatten(flat, "params")
+    adam, decay, sched = template.opt_state[1]
+    count = np.asarray(flat["opt_state/adam_count"], np.int32)
+    if int(count) != int(flat["opt_state/schedule_count"]):
+        raise ValueError("optimiser counts differ")
+    return {
+        "step": np.asarray(flat["step"], np.int32),
+        "trainable": {k: params[k] for k in template.trainable},
+        "frozen": {k: params[k] for k in template.frozen},
+        "batch_stats": unflatten(flat, "batch_stats"),
+        "opt_state": (template.opt_state[0], (
+            adam._replace(count=count, mu=unflatten(flat, "opt_state/mu"), nu=unflatten(flat, "opt_state/nu")),
+            decay, sched._replace(count=np.asarray(flat["opt_state/schedule_count"], np.int32)))),
+        "rng": np.asarray(flat["rng"], np.uint32),
+    }

@@ -108,7 +108,9 @@ class ViTBackbone(nn.Module):
         w = self.patch_embed.weight.permute(0, 2, 3, 1).reshape(D, ps * ps * 3).to(self.dtype)
         return torch.matmul(patches, w.T) + self.patch_embed.bias.to(self.dtype)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(B, H, W, 3) -> (B, H/16, W/16, C); ``train`` normalises with the
+        batch's statistics and moves the running ones."""
         B, H, W, _ = images.shape
         gh, gw = H // self.patch_size, W // self.patch_size
         D, pg = self.embed_dim, self.pos_grid
@@ -125,7 +127,7 @@ class ViTBackbone(nn.Module):
             tokens = block(tokens)
         tokens = self.norm(tokens)
         patches = tokens[:, 1 + self.num_registers :, :].float()
-        flat = self.feature_norm(patches.reshape(B * gh * gw, D))
+        flat = self.feature_norm(patches.reshape(B * gh * gw, D), train=train)
         return flat.reshape(B, gh, gw, D)
 
 
@@ -137,3 +139,36 @@ def patch_to_pixel(patch_coords: torch.Tensor, patch_size: int = 16) -> torch.Te
 def pixel_to_patch(pixel_coords: torch.Tensor, patch_size: int = 16) -> torch.Tensor:
     """Inverse of :func:`patch_to_pixel`."""
     return (pixel_coords - patch_size / 2) / patch_size
+
+
+def convert_timm_state_dict(state_dict: dict, depth: int = 12, pos_grid: int = 28) -> dict:
+    """A timm DINOv3 ViT state dict -> a ``ViTBackbone`` state dict, for
+    deployments that ship pretrained weights. timm's layouts are already
+    PyTorch's (conv OIHW, linear (out, in), fused [q; k; v] rows), so only
+    names change: ``patch_embed.proj`` -> ``patch_embed``, ``reg_token`` ->
+    ``register_tokens``; the last ``pos_grid``^2 rows of ``pos_embed`` are
+    kept (prefix-token embeddings dropped). ``feature_norm`` starts fresh:
+    the identity, as the JAX converter leaves it."""
+
+    def t(x):
+        return torch.as_tensor(x).detach().to(torch.float32).clone()
+
+    embed_dim = int(t(state_dict["cls_token"]).shape[-1])
+    sd = {
+        "patch_embed.weight": t(state_dict["patch_embed.proj.weight"]),
+        "patch_embed.bias": t(state_dict["patch_embed.proj.bias"]),
+        "cls_token": t(state_dict["cls_token"]),
+        "register_tokens": t(state_dict.get("reg_token", state_dict.get("register_tokens"))),
+        "pos_embed": t(state_dict["pos_embed"])[:, -pos_grid * pos_grid :].contiguous(),
+        "norm.weight": t(state_dict["norm.weight"]),
+        "norm.bias": t(state_dict["norm.bias"]),
+        "feature_norm.weight": torch.ones(embed_dim),
+        "feature_norm.bias": torch.zeros(embed_dim),
+        "feature_norm.running_mean": torch.zeros(embed_dim),
+        "feature_norm.running_var": torch.ones(embed_dim),
+    }
+    for i in range(depth):
+        for leaf in ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1", "mlp.fc2"):
+            for kind in ("weight", "bias"):
+                sd[f"blocks.{i}.{leaf}.{kind}"] = t(state_dict[f"blocks.{i}.{leaf}.{kind}"])
+    return sd

@@ -1,6 +1,6 @@
 """The learned feature frontend (port of ``models/frontend.py``):
 backbone -> saliency -> keypoints -> (sub-patch offsets) -> descriptors
--> confidence, for inference.
+-> confidence; the trainer calls its stages one by one.
 
 With ``subpatch_refine`` the keypoints move off the 16-pixel patch
 centres by ``OffsetHead``'s soft-argmax over a 21x21 intensity window
@@ -108,9 +108,10 @@ class LearnedFrontend(nn.Module):
         if device is not None:
             self.to(device)
 
-    def features_and_saliency(self, images: torch.Tensor):
-        """Backbone grid + saliency map (NaN saliency -> 0.5)."""
-        feats = self.backbone(images)
+    def features_and_saliency(self, images: torch.Tensor, train: bool = False):
+        """Backbone grid + saliency map (NaN saliency -> 0.5); ``train`` is
+        the backbone BatchNorm's training mode."""
+        feats = self.backbone(images, train=train)
         saliency = self.selector(feats)
         saliency = torch.where(torch.isfinite(saliency), saliency, torch.full_like(saliency, 0.5))
         return feats, saliency

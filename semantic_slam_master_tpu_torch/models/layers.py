@@ -10,7 +10,10 @@ the flax layer it replaces does:
 - ``LayerNorm`` / ``GroupNorm`` take the mean and E[x^2] - mean^2 in
   f32 (flax's fast variance, clipped at 0), eps 1e-6, and apply
   ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; ``BatchNorm``
-  does the same with its running statistics, eps 1e-5.
+  does the same with its running statistics, eps 1e-5, or in training
+  mode with the batch's (the same fast variance, biased), and then moves
+  the running statistics by flax's rule, ``ra <- 0.9 ra + 0.1 batch``
+  (not ``F.batch_norm``'s: that one updates with the unbiased variance).
 
 Parameters are drawn on the CPU from an explicit ``torch.Generator``, so
 a seed gives the same weights on every device.
@@ -157,18 +160,27 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_running_average=True)`` over the last axis."""
+    """flax ``nn.BatchNorm(momentum=0.9)`` over the last axis of (N, C):
+    ``use_running_average=not train``."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return normalize(x.float(), self.running_mean, self.running_var, self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return normalize(x.float(), self.running_mean, self.running_var, self.weight, self.bias, self.eps)
+        x, mean, var = fast_stats(x, (0,))
+        mean, var = mean[0], var[0]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return normalize(x, mean, var, self.weight, self.bias, self.eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -110,3 +110,13 @@ def map_coords(xy: torch.Tensor, image_size: tuple, map_size: tuple) -> torch.Te
     (H, W), (Hm, Wm) = image_size, map_size
     scale = torch.tensor([Wm / W, Hm / H], dtype=xy.dtype, device=xy.device)
     return (xy + 0.5) * scale - 0.5
+
+
+def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Pixel cross-entropy of (B, H, W, C) logits against (B, H, W) labels,
+    the log-softmax in the logits' dtype (f32 from the classifier)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if valid is None:
+        return torch.mean(nll)
+    return torch.sum(torch.where(valid, nll, 0.0)) / torch.clamp(torch.sum(valid.to(nll.dtype)), min=1.0)

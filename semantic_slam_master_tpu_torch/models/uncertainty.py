@@ -1,5 +1,6 @@
-"""Per-keypoint confidence head (port of ``models/uncertainty.py``'s
-``UncertaintyEstimator``; its training losses are not ported yet)."""
+"""Per-keypoint confidence head and its training losses (port of
+``models/uncertainty.py``): calibration MSE against 1 - normalised error
+and the L1 of the implied error 1/conf - 1, both mask-aware."""
 
 from __future__ import annotations
 
@@ -28,3 +29,26 @@ class UncertaintyEstimator(nn.Module):
         x = torch.relu(self.fc1(x))
         x = torch.relu(self.fc2(x))
         return torch.sigmoid(self.fc3(x))
+
+
+def _masked_mean(x: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
+    """Mean of ``x`` over ``valid``, the mask applied as a select (XLA's
+    compiled form of JAX's ``sum(x * valid) / max(sum(valid), 1)``)."""
+    if valid is None:
+        return torch.mean(x)
+    return torch.sum(torch.where(valid, x, 0.0)) / torch.clamp(torch.sum(valid.to(x.dtype)), min=1.0)
+
+
+def calibration_loss(confidence: torch.Tensor, actual_error: torch.Tensor, valid: torch.Tensor | None = None,
+                     epsilon: float = 1e-6) -> torch.Tensor:
+    """MSE between confidence (..., 1) and 1 - error / (max error + eps);
+    ``amax`` splits a tied maximum's gradient as ``jnp.max`` does."""
+    target = 1.0 - actual_error / (torch.amax(actual_error) + epsilon)
+    return _masked_mean((confidence[..., 0] - target) ** 2, valid)
+
+
+def expected_error_loss(confidence: torch.Tensor, actual_error: torch.Tensor,
+                        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """L1 between the implied error 1 / (conf + 1e-6) - 1 and the measured one."""
+    pred_err = 1.0 / (confidence[..., 0] + 1e-6) - 1.0
+    return _masked_mean(torch.abs(pred_err - actual_error), valid)

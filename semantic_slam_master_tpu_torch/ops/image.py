@@ -1,5 +1,5 @@
-"""Batched image primitives (port of ``ops/image.py``): luma, blur, pooling
-and the antialiased bilinear resize of ``jax.image.resize``."""
+"""Batched image primitives (port of ``ops/image.py``): luma, blur, Sobel,
+pooling and the antialiased bilinear resize of ``jax.image.resize``."""
 
 from __future__ import annotations
 
@@ -13,6 +13,39 @@ def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
     the JAX ``rgb_to_gray`` computes it."""
     w = torch.tensor([0.299, 0.587, 0.114], dtype=rgb.dtype, device=rgb.device)
     return rgb @ w
+
+
+SOBEL_X = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], dtype=np.float32)
+SOBEL_Y = np.array([[-1, -2, -1], [0, 0, 0], [1, 2, 1]], dtype=np.float32)
+
+
+def conv2d_single(img: torch.Tensor, kernel, padding: str = "SAME") -> torch.Tensor:
+    """2-D correlation of (B, H, W) with a (kh, kw) kernel, zero-padded as
+    XLA's ``SAME`` (or ``VALID``) pads it."""
+    k = torch.as_tensor(np.asarray(kernel), dtype=img.dtype, device=img.device)
+    kh, kw = k.shape
+    x = img[:, None]
+    if padding == "SAME":
+        x = F.pad(x, ((kw - 1) // 2, kw - 1 - (kw - 1) // 2, (kh - 1) // 2, kh - 1 - (kh - 1) // 2))
+    elif padding != "VALID":
+        raise ValueError(f"unknown padding {padding!r}")
+    return F.conv2d(x, k[None, None])[:, 0]
+
+
+def sobel_magnitude(gray: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Sobel gradient magnitude of (B, H, W) with zero-padded borders."""
+    gx = conv2d_single(gray, SOBEL_X)
+    gy = conv2d_single(gray, SOBEL_Y)
+    return torch.sqrt(gx * gx + gy * gy + eps)
+
+
+def avg_pool_to(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Average pooling of (B, H, W) to (B, out_h, out_w) for integer ratios
+    (``F.adaptive_avg_pool2d``'s result in that case)."""
+    B, H, W = img.shape
+    if H % out_h or W % out_w:
+        raise ValueError(f"non-integer pooling ratio {H}x{W} -> {out_h}x{out_w}")
+    return img.reshape(B, out_h, H // out_h, out_w, W // out_w).mean(dim=(2, 4))
 
 
 def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:

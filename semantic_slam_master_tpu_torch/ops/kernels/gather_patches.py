@@ -15,6 +15,9 @@ it:
   equals ``gather_patches`` wherever the clamps agree.
 
 Both are pure copies, so kernel and plain version give the same bits.
+Neither has a backward: both refuse an ``img`` that requires grad (the
+trainer's windows come from the input images, which carry none), rather
+than hand back a result cut off from the graph.
 """
 
 from __future__ import annotations
@@ -60,6 +63,8 @@ def _check(img: torch.Tensor, centers: torch.Tensor, radius: int, side: int) -> 
         raise ValueError(f"frame {tuple(img.shape[1:])} is smaller than a {side}x{side} window")
     if img.device != centers.device:
         raise ValueError(f"img on {img.device} but centers on {centers.device}")
+    if img.requires_grad:
+        raise ValueError("gather_patches has no backward: img must not require grad")
 
 
 def _launch(img, centers, radius: int, side: int, name: str) -> torch.Tensor:

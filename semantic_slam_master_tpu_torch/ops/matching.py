@@ -4,7 +4,9 @@ Hamming distance of packed ORB descriptors as a +/-1 product,
 float descriptors with f32 sums; mutual nearest neighbours with a
 distance or similarity gate and an optional ratio test.
 ``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does, so
-ties resolve alike."""
+ties resolve alike; ``torch.amax`` splits the gradient of a tied maximum
+evenly, as ``jnp.max`` does (``max(dim).values`` sends it all to one
+index), which the trainer's calibration losses see through ``score``."""
 
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ def _mutual_and_ratio(
     if valid2 is not None:
         sim = torch.where(valid2[..., None, :], sim, neg)
     best2 = torch.argmax(sim, dim=-1)  # (..., N)
-    best_val = sim.max(dim=-1).values
+    best_val = torch.amax(sim, dim=-1)
     best1_of_col = torch.argmax(sim, dim=-2)  # (..., M)
     row_ids = torch.arange(sim.shape[-2], device=sim.device)
     ok = torch.gather(best1_of_col, -1, best2) == row_ids
@@ -62,7 +64,7 @@ def _mutual_and_ratio(
         ok = ok & (best_val > min_score)
     if ratio is not None:
         cols = torch.arange(sim.shape[-1], device=sim.device)
-        second = torch.where(cols == best2[..., None], neg, sim).max(dim=-1).values
+        second = torch.amax(torch.where(cols == best2[..., None], neg, sim), dim=-1)
         ok = ok & (second < ratio * best_val)
     return Matches(idx2=best2, valid=ok, score=best_val)
 
@@ -91,3 +93,14 @@ def match_hamming(
     sim = -hamming_distance_matrix(desc1, desc2)
     min_score = -max_distance if max_distance is not None else None
     return _mutual_and_ratio(sim, valid1, valid2, None, min_score)
+
+
+def matches_to_pairs(matches: Matches, max_pairs: int):
+    """(..., max_pairs, 2) [i, j] index pairs and their validity: the first
+    ``max_pairs`` valid rows of a match row-map, in keypoint order (a
+    stable sort of ``~valid``, as the JAX op sorts)."""
+    order = torch.sort((~matches.valid).to(torch.uint8), dim=-1, stable=True).indices
+    take = order[..., :max_pairs]
+    idx2 = torch.gather(matches.idx2, -1, take)
+    valid = torch.gather(matches.valid, -1, take)
+    return torch.stack([take, idx2], dim=-1), valid

@@ -171,3 +171,14 @@ def test_cpu_tensors_take_the_plain_version():
     img = torch.rand((1, 40, 40))
     assert torch.equal(kfast.fast_score(img), kfast.fast_score_plain(img))
     assert kfast.fast_score.launches == before
+
+
+def test_gather_patches_refuses_grad_on_card(cuda):
+    """The kernel has no backward: an image that requires grad is refused,
+    not silently cut from the graph."""
+    img = torch.zeros((1, 64, 64), device=cuda, requires_grad=True)
+    centres = torch.full((1, 3, 2), 32.0, device=cuda)
+    before = kgather.gather_patches.launches
+    with pytest.raises(ValueError, match="no backward"):
+        kgather.gather_patches(img, centres, 10)
+    assert kgather.gather_patches.launches == before
