@@ -137,6 +137,30 @@ device synchronised at the end of each):
    CPU figures over seeds 0-3; then ``run-slam --dynamic --seed 1
    --semantics model --segmenter-checkpoint`` it: ATE below twice the
    worst of the JAX package's own 300-step segmenters.
+25. ORB windows at radius 15 -- ``orb.orientations`` and
+   ``orb.describe_from_patches`` on the ORB path's blurred level-0 frames
+   and detections, through gather_patches at radius 15 (31x31 windows; the
+   kernel is also held against its plain version at that shape among the
+   gather_patches cases): orientations of the u8-quantised frame (exact
+   integer moments, as every ORB path takes them) within 1e-6 rad and
+   descriptors equal to the CPU's.
+26. describe on small pyramid levels -- ``extract_features`` on (4, 48,
+   64) frames, whose levels reach the 24x32 floor, card against CPU (the
+   frontend phase's bounds), and ``orb.describe`` at (24, 32), (32, 32),
+   (24, 64), (32, 64), (48, 80), (120, 100) on identical inputs, card
+   against CPU: at least 99.9% of descriptors identical; the aligned
+   kernel launched exactly on the sizes that take it.
+27. bench -- ``bench --frontend orb`` (640x480, batch 8, 1000 keypoints)
+   and ``--frontend learned`` (seeded ViT-S/16 at 448x448, batch 8): the
+   JSON's stage times and fps beside the card's name and power limit.
+28. visualize -- the device half of each mode on the card against the
+   CPU (``saliency_map`` in ORB mode and with a seeded ViT-S/16 ``.npz``
+   written by ``convert.save_npz``; ``orb_extract_and_match`` on a frame
+   pair and on the sequence's spacings), then ``visualize saliency``
+   (both modes), ``matches`` and ``sequence`` through the CLI where
+   ``matplotlib`` is installed (where it is not, the script says so and
+   draws nothing).
+29. check-setup -- ``check-setup`` exits 0 on the card.
 
 Every path that runs a kernel resets the launch counters just before it
 and reads them just after; the kernels line sums them (``launches``)
@@ -319,6 +343,9 @@ SEG_TRAIN_LOSS_MAX = 2 * max(SEG_TRAIN_JAX_LOSS)
 SEG_TRAIN_JAX_ATE_M = (0.025214, 0.579714, 0.652049, 0.633786)
 SEG_TRAIN_ATE_BOUND_M = 2 * max(SEG_TRAIN_JAX_ATE_M)
 TARGET_TOTAL_S = 600
+SMALL_LEVEL_SIZES = [(24, 32), (32, 32), (24, 64), (32, 64), (48, 80), (120, 100)]
+DESCRIBE_SAME_MIN = 0.999  # descriptors card vs CPU on identical inputs (an atan2 ulp on a bin edge)
+VIT_SALIENCY_GAP = 0.02  # ViT-S/16 saliency card vs CPU, as in phase 9
 # gather_patches cases: (wrapper, (B, H, W), N, radius, centres). The first
 # is the learned path's call per 8-frame chunk (500 keypoints on distinct
 # cells of the 30x40 patch grid, 21x21 windows); the kernels line reports
@@ -330,6 +357,7 @@ GATHER_CASES = [
     ("gather_patches", (8, 480, 640), 500, 10, "grid"),
     ("gather_patches", (8, 448, 448), 500, 10, "grid"),  # a ViT-S/16 train step's call (phase 23)
     ("gather_patches", (8, 224, 224), 192, 10, "grid"),  # a tiny-frontend train step's call (21, 22)
+    ("gather_patches", (16, 480, 640), 202, 15, "random"),  # orb.orientations' 31x31 windows (phase 25)
     ("gather_patches_padded", (1, 480, 640), 8192, 15, "random"),
     ("gather_patches", (2, 83, 300), 37, 10, "random"),
     ("gather_patches_padded", (2, 83, 300), 37, 15, "random"),
@@ -1247,6 +1275,171 @@ def training_phases(torch, run_slam_cli, evaluate_cli, config_mod, record, reset
 
 
 
+def coincide_share(torch, xy_a, xy_b, valid) -> float:
+    """Share of valid keypoint slots that hold the same detection within
+    1e-3 px in two (..., N, 2) sets."""
+    same = (xy_a - xy_b).abs().amax(-1) <= 1e-3
+    return float(same[valid].float().mean())
+
+
+def shared_points(a, b) -> tuple:
+    """(distinct points of ``a`` also in ``b``, distinct points of ``b``):
+    a fixed-K set repeats its best point in unused slots."""
+    sa, sb = set(map(tuple, a.tolist())), set(map(tuple, b.tolist()))
+    return len(sa & sb), len(sb)
+
+
+def cli_tool_phases(torch, synthetic, tracking, record, reset_counts, read_counts, card, path_frames) -> None:
+    """Phases 25-29 (the module docstring): the ORB gather path, the small
+    pyramid levels, and the bench, visualize and check-setup commands."""
+    from semantic_slam_master_tpu_torch import convert
+    from semantic_slam_master_tpu_torch.cli import bench_cli, check_setup_cli, visualize_cli
+    from semantic_slam_master_tpu_torch.models.frontend import LearnedFrontend
+    from semantic_slam_master_tpu_torch.ops import orb
+    from semantic_slam_master_tpu_torch.ops.kernels import gather_patches as kgather
+    from semantic_slam_master_tpu_torch.ops.kernels import patches as kpatch
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    with phase("25. ORB windows at radius 15: orb.orientations and describe_from_patches, card vs cpu"):
+        blurred, xy = path_frames
+        quantised = kpatch.quantize_u8(blurred)
+        reset_counts()
+        theta = orb.orientations(quantised, xy)
+        desc = orb.describe_from_patches(kgather.gather_patches(blurred, xy, orb.PATCH_RADIUS))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        b_cpu, xy_cpu = blurred.cpu(), xy.cpu()
+        theta_cpu = orb.orientations(quantised.cpu(), xy_cpu)
+        desc_cpu = orb.describe_from_patches(kgather.gather_patches(b_cpu, xy_cpu, orb.PATCH_RADIUS))
+        gap = float((theta.cpu() - theta_cpu).abs().max())
+        same = bool(torch.equal(desc.cpu(), desc_cpu))
+        log(f"  {tuple(blurred.shape)} with {xy.shape[1]} keypoints a frame: orientation gap {gap:.3e} rad "
+            f"(bound 1e-6), descriptors equal {same}, launches={counts}")
+        if gap > 1e-6 or not same:
+            raise AssertionError("the radius-15 ORB windows on the card disagree with the CPU")
+        record("orb_radius15", counts, {"gather_patches": 2})
+
+    with phase("26. describe on small pyramid levels: extract_features (4, 48, 64) and describe, card vs cpu"):
+        gen = torch.Generator().manual_seed(SEED)
+        g = torch.nn.functional.interpolate(torch.rand((4, 1, 7, 9), generator=gen), size=(48, 64),
+                                            mode="bilinear")[:, 0].contiguous()
+        d = torch.ones_like(g)
+        reset_counts()
+        gpu = tracking.extract_features(g.cuda(), d.cuda(), num_keypoints=64)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref = tracking.extract_features(g, d, num_keypoints=64)
+        share = coincide_share(torch, gpu.xy.cpu(), ref.xy, ref.valid)
+        same_desc = float((gpu.desc.cpu() == ref.desc).all(-1)[ref.valid].float().mean())
+        levels = tracking.pyramid_shapes(48, 64, 4)
+        log(f"  extract_features (4, 48, 64), levels {levels}: keypoints coincide {share:.4f}, descriptors "
+            f"identical {same_desc:.4f}, valid {int(ref.valid.sum())}/{ref.valid.numel()}, launches={counts}")
+        if share < 0.98 or same_desc < 0.99:
+            raise AssertionError("extract_features on small frames: card disagrees with the CPU")
+        record("small_levels", counts, {"fast_score": 4, "gather_aligned_patches": 2})
+        for H, W in SMALL_LEVEL_SIZES:
+            img = torch.rand((4, H, W), generator=gen)
+            pts = torch.rand((4, 64, 2), generator=gen) * torch.tensor([W + 10.0, H + 10.0]) - 5.0
+            before = read_counts()["gather_aligned_patches"]
+            got = orb.describe(img.cuda(), pts.cuda()).cpu()
+            launched = read_counts()["gather_aligned_patches"] - before
+            want = orb.describe(img, pts)
+            same = float((got == want).all(-1).float().mean())
+            aligned = int((H >= 32 and W >= 33) or (W % 32 == 0 and W >= 64))
+            log(f"  describe ({H}, {W}): identical {same:.4f} (bound >= {DESCRIBE_SAME_MIN}), aligned kernel "
+                f"launches {launched} (expected {aligned})")
+            if same < DESCRIBE_SAME_MIN or launched != aligned:
+                raise AssertionError(f"describe at ({H}, {W}) on the card disagrees with the CPU")
+
+    with phase("27. bench --frontend orb and --frontend learned (ViT-S/16 at 448) on the card"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for frontend in ("orb", "learned"):
+            out = os.path.join(tmp, f"{frontend}.json")
+            reset_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = bench_cli.main(["--frontend", frontend, "--output", out])
+            counts = read_counts()
+            with open(out) as f:
+                r = json.load(f)
+            stages = {k: round(v["mean_ms"], 4) for k, v in r["stages"].items()}
+            log(f"  bench --frontend {frontend} on {r['card']} ({r['device']}): exit {rc}, batch {r['batch']}, "
+                f"stage ms per batch {stages}, fps={r['fps']:.2f}, launches={counts}")
+            if rc != 0 or r["card"] != card or not r["fps"] > 0:
+                raise AssertionError(f"bench --frontend {frontend}: {r}")
+            if frontend == "orb":
+                record("bench_orb", counts, {"fast_score": 1, "gather_aligned_patches": 1})
+
+    plotting = importlib.util.find_spec("matplotlib") is not None
+    with phase("28. visualize: saliency (ORB and --checkpoint), matches, sequence; device half card vs cpu"), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        seq = synthetic.make_sequence(num_frames=6, scale=0.5)
+        frames = [seq.frame(i)["rgb"].astype(np.float32) for i in range(6)]
+        reset_counts()
+        sal, kpts = visualize_cli.saliency_map(frames[0], cuda)
+        counts = read_counts()
+        sal_cpu, kpts_cpu = visualize_cli.saliency_map(frames[0], cpu)
+        n_same, n_cpu = shared_points(kpts, kpts_cpu)
+        log(f"  saliency (FAST pooled to 16 px): max gap {np.abs(sal - sal_cpu).max():.3e}, keypoints "
+            f"{len(kpts)} card / {len(kpts_cpu)} cpu, {n_same} shared, launches={counts}")
+        if np.abs(sal - sal_cpu).max() > 0.02 or n_same < 0.98 * n_cpu:
+            raise AssertionError("visualize saliency: card disagrees with the CPU")
+        record("visualize_saliency", counts, {"fast_score": 2})
+
+        ckpt = os.path.join(tmp, "vits_seeded.npz")
+        vits = LearnedFrontend(generator=torch.Generator().manual_seed(SEED))
+        convert.save_npz(ckpt, convert.frontend_tree(vits.state_dict()))
+        del vits
+        sal, kpts = visualize_cli.saliency_map(frames[0], cuda, ckpt)
+        sal_cpu, kpts_cpu = visualize_cli.saliency_map(frames[0], cpu, ckpt)
+        n_same, n_cpu = shared_points(kpts, kpts_cpu)
+        log(f"  saliency --checkpoint (seeded ViT-S/16, {os.path.getsize(ckpt)} B .npz): saliency {sal.shape}, "
+            f"max gap {np.abs(sal - sal_cpu).max():.3e} (bound {VIT_SALIENCY_GAP}), distinct keypoints shared "
+            f"{n_same}/{n_cpu} (bound >= 90%)")
+        if np.abs(sal - sal_cpu).max() > VIT_SALIENCY_GAP or n_same < 0.9 * n_cpu:
+            raise AssertionError("visualize saliency --checkpoint: card disagrees with the CPU")
+
+        pairs = [(0, 1)] + [(0, s) for s in (2, 5)]
+        reset_counts()
+        match = visualize_cli.orb_extract_and_match(cuda)
+        got = [match(frames[a], frames[b]) for a, b in pairs]
+        counts = read_counts()
+        match_cpu = visualize_cli.orb_extract_and_match(cpu)
+        for (a, b), (k1, _, m, _) in zip(pairs, got):
+            r1, _, rm, _ = match_cpu(frames[a], frames[b])
+            share = coincide_share(torch, torch.from_numpy(k1), torch.from_numpy(r1), torch.ones(len(r1), dtype=bool))
+            log(f"  matches frames {a}->{b}: {len(m)} card / {len(rm)} cpu, keypoints coincide {share:.4f}")
+            if share < 0.98 or abs(len(m) - len(rm)) > 0.02 * len(rm) + 2:
+                raise AssertionError(f"visualize matches {a}->{b}: card disagrees with the CPU")
+        log(f"  launches={counts}")
+        record("visualize_matches", counts, {"fast_score": len(pairs), "gather_aligned_patches": len(pairs)})
+
+        if not plotting:
+            log("  no PNG drawn: matplotlib is not installed on this machine (the device halves above ran)")
+        else:
+            for mode, extra, png in (("saliency", [], "saliency_analysis.png"),
+                                     ("saliency", ["--checkpoint", ckpt], "saliency_analysis.png"),
+                                     ("matches", [], "matches.png"),
+                                     ("sequence", ["--spacings", "1", "2", "5"], "matches_sequence.png")):
+                out_dir = os.path.join(tmp, f"{mode}{len(extra)}")
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as buf:
+                    rc = visualize_cli.main([mode, "--synthetic", "--frames", "6", "--output", out_dir, *extra])
+                size = os.path.getsize(os.path.join(out_dir, png))
+                log(f"  visualize {mode} {' '.join(extra[:1])}: exit {rc}, {png} {size} B, "
+                    f"{time.perf_counter() - t0:.2f} s; {buf.getvalue().strip().splitlines()[0]}")
+                if rc != 0 or size == 0:
+                    raise AssertionError(f"visualize {mode} wrote no plot")
+
+    with phase("29. check-setup on the card"):
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = check_setup_cli.main([])
+        lines = buf.getvalue().strip().splitlines()
+        log("  " + " | ".join(line.strip() for line in lines if "accelerator" in line or "[ok] torch" in line
+                                or line in ("PASS", "FAIL")))
+        if rc != 0:
+            raise AssertionError(f"check-setup exited {rc}: {lines}")
+
+
 def main() -> int:
     import torch
 
@@ -1314,6 +1507,7 @@ def main() -> int:
         fast = check_fast(torch, kfast, gen, flush, path)
     with phase("gather_aligned_patches vs plain"):
         patches = check_patches(torch, kpatch, gen, flush, path)
+    path_frames = path[0][1:]  # level 0 blurred, its detections (phase 25)
     del path
     with phase("gather_patches vs plain"):
         gather = check_gather(torch, kgather, gen, flush)
@@ -1528,6 +1722,8 @@ def main() -> int:
             record("suite_learned", read_counts(), {"gather_patches": 1})
 
     training_phases(torch, run_slam_cli, evaluate_cli, config_mod, record, reset_counts, read_counts, card)
+    cli_tool_phases(torch, synthetic, tracking, record, reset_counts, read_counts, card, path_frames)
+    del path_frames
 
     kernels = []
     for name, src, replaces, r, timed_as in (

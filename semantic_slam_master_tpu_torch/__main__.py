@@ -12,6 +12,10 @@ COMMANDS = {
     "associate": ("semantic_slam_master_tpu_torch.cli.associate_cli", "RGB/depth timestamp association"),
     "train": ("semantic_slam_master_tpu_torch.cli.train_cli", "train the learned frontend"),
     "train-segmenter": ("semantic_slam_master_tpu_torch.cli.train_segmenter_cli", "train the segmentation CNN on synthetic labels"),
+    "check-setup": ("semantic_slam_master_tpu_torch.cli.check_setup_cli", "environment/dataset checks"),
+    "download-tum": ("semantic_slam_master_tpu_torch.cli.download_tum_cli", "TUM RGB-D downloader"),
+    "visualize": ("semantic_slam_master_tpu_torch.cli.visualize_cli", "saliency/match visualizations"),
+    "bench": ("semantic_slam_master_tpu_torch.cli.bench_cli", "per-stage performance report"),
 }
 
 

@@ -4,13 +4,16 @@ Reads ``<sequence>_trajectory.txt`` files and their ground truth, computes
 ATE (Umeyama, no scale) and RPE, and writes ``results.json``. A sequence
 that fails (an unreadable file, too few matched timestamps) is recorded
 as ``{"status": "error", "error": ...}`` and the others are still scored.
-The JAX CLI's ``--plots`` is not ported yet: it waits for the port of
-``viz/``, and no plots are written.
+Each scored sequence's aligned trajectory is drawn over its ground truth
+in ``<plots>/<sequence>_trajectory.png`` where ``matplotlib`` is
+installed; without it the scores are written and the plots skipped, with
+a note.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 from pathlib import Path
 
@@ -27,11 +30,17 @@ def main(argv=None):
     parser.add_argument("--sequences", nargs="*", default=None)
     parser.add_argument("--output", default=None,
                         help="results.json path (default: <trajectories>/results.json)")
+    parser.add_argument("--plots", default=None,
+                        help="plot dir (default: <trajectories>/plots)")
     parser.add_argument("--rpe-delta", type=int, default=10)
     parser.add_argument("--max-diff", type=float, default=0.01)
     args = parser.parse_args(argv)
 
     traj_dir = Path(args.trajectories)
+    plot_dir = Path(args.plots) if args.plots else traj_dir / "plots"
+    plotting = importlib.util.find_spec("matplotlib") is not None
+    if not plotting:
+        print("[evaluate] matplotlib is not installed: no trajectory plots are written")
     out_path = Path(args.output) if args.output else traj_dir / "results.json"
     sequences = args.sequences or sorted(
         p.name[: -len("_trajectory.txt")] for p in traj_dir.glob("*_trajectory.txt")
@@ -54,9 +63,15 @@ def main(argv=None):
         try:
             t_est, p_est = trajectory_io.read_tum_trajectory(traj_file)
             t_gt, p_gt = trajectory_io.read_tum_trajectory(gt_file)
-            results[seq] = ate_rpe.evaluate_trajectory(
+            res = ate_rpe.evaluate_trajectory(
                 t_gt, p_gt, t_est, p_est, rpe_delta=args.rpe_delta, max_diff=args.max_diff
             )
+            if plotting:
+                from ..viz.trajectory import plot_trajectory_comparison
+
+                _, gt_s, est_s = ate_rpe.sync_trajectories(t_gt, p_gt, t_est, p_est, max_diff=args.max_diff)
+                plot_trajectory_comparison(gt_s, est_s, plot_dir / f"{seq}_trajectory.png", title=seq)
+            results[seq] = res
         except Exception as e:  # per-sequence failure tolerance, as the JAX CLI
             results[seq] = {"status": "error", "error": str(e)}
 
@@ -73,7 +88,7 @@ def main(argv=None):
     failed = [s for s in results if s not in ok]
     if failed:
         print(f"\nfailed: {failed}")
-    print(f"\nresults: {out_path}")
+    print(f"\nresults: {out_path}" + (f"\nplots:   {plot_dir}/" if plotting else ""))
     return 0
 
 

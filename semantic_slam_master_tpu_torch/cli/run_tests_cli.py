@@ -14,9 +14,9 @@ does: the ``model:`` section of ``--config`` sizes it, ``--checkpoint``
 takes an ``.npz`` of its flax variables (without one: seeded weights and
 a warning). Frames are resized to the config's ``input_size``.
 
-The JAX CLI's per-sequence PNG dashboard is not ported yet: it waits for
-the port of ``viz/``, and no plot is written (``--no-plots`` is accepted
-and changes nothing).
+Each sequence's results are also drawn as a PNG dashboard,
+``<output stem>_<sequence>.png``, unless ``--no-plots``; a plot that
+fails (``matplotlib`` absent, say) is reported and never fails the suite.
 """
 
 from __future__ import annotations
@@ -57,9 +57,7 @@ def main(argv=None):
     parser.add_argument("--allow-train-overlap", action="store_true")
     parser.add_argument("--no-performance", action="store_true")
     parser.add_argument("--output", default="test_results.json")
-    parser.add_argument("--no-plots", action="store_true",
-                        help="accepted for the JAX CLI's sake: the PNG dashboard waits for the port of "
-                             "viz/, and no plot is written either way")
+    parser.add_argument("--no-plots", action="store_true")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = parser.parse_args(argv)
 
@@ -121,6 +119,15 @@ def main(argv=None):
         if "performance" in r and "fps" in r["performance"]:
             print(f"  performance: {r['performance']['fps']:.1f} FPS")
         print(f"  => {'ALL PASS' if r['all_passed'] else 'FAILURES'}")
+        if not args.no_plots:
+            png = f"{Path(args.output).with_suffix('').as_posix()}_{name}.png"
+            try:
+                from ..viz import test_dashboard
+
+                test_dashboard.acceptance_dashboard(r, png, sequence=name)
+                print(f"  dashboard: {png}")
+            except Exception as e:  # plots must never fail the suite
+                print(f"  dashboard failed: {e}", file=sys.stderr)
 
     Path(args.output).write_text(json.dumps(strip_per_pair(all_results), indent=2))
     print(f"results: {args.output}")

@@ -74,7 +74,7 @@ def camera(cam) -> PinholeCamera:
 
 
 def test_pattern(pattern) -> np.ndarray:
-    """A (256, 4) BRIEF test pattern as the int8 array ``orb.describe`` takes."""
+    """A (256, 4) BRIEF test pattern as the int8 array ``orb.set_test_pattern`` takes."""
     p = np.asarray(pattern, dtype=np.int8)
     if p.shape != (256, 4):
         raise ValueError(f"test pattern must be (256, 4), got {p.shape}")

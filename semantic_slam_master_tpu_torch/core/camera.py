@@ -18,6 +18,20 @@ class PinholeCamera(NamedTuple):
     height: int = 480
     depth_scale: float = 5000.0  # TUM 16-bit depth -> meters divisor
 
+    @property
+    def K(self) -> torch.Tensor:
+        """(3, 3) f32 intrinsic matrix."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+                            dtype=torch.float32)
+
+    @property
+    def K_inv(self) -> torch.Tensor:
+        """(3, 3) f32 inverse intrinsics, in closed form."""
+        return torch.tensor(
+            [[1.0 / self.fx, 0.0, -self.cx / self.fx], [0.0, 1.0 / self.fy, -self.cy / self.fy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32,
+        )
+
     def scaled(self, sx: float, sy: float) -> "PinholeCamera":
         """Intrinsics after resizing the image by (sx, sy)."""
         return self._replace(
@@ -72,3 +86,17 @@ def in_bounds(pixels: torch.Tensor, cam: PinholeCamera, margin: float = 0.0) -> 
         & (v >= margin)
         & (v <= cam.height - 1 - margin)
     )
+
+
+def rotation_homography(K: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Rotation-only homography ``H = K R K^{-1}``."""
+    return K @ R @ torch.linalg.inv(K)
+
+
+def apply_homography(H: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Warp (..., N, 2) points by a 3x3 homography; the homogeneous scale
+    is kept away from 0 with its sign."""
+    homo = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+    warped = homo @ H.transpose(-1, -2)
+    w = warped[..., 2:3]
+    return warped[..., :2] / torch.clamp(w.abs(), min=1e-8) * torch.sign(w)

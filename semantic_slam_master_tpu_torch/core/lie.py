@@ -218,3 +218,14 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
 
+
+
+def relative_pose(T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
+    """``T_rel = T2 @ T1^{-1}``, the frame-pair convention."""
+    return mm_small(T2, pose_inverse(T1))
+
+
+def rotation_angle(R: torch.Tensor) -> torch.Tensor:
+    """Geodesic rotation angle (radians) of a rotation matrix."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))

@@ -82,7 +82,7 @@ def orb_adapter(num_keypoints: int = 500, threshold: float = 0.05, max_distance:
             gray = gray_of(rgb)
             blurred = image.gaussian_blur(gray, sigma=2.0, radius=3)
             kp = fast.detect(gray, num_keypoints, threshold)
-            desc = orb.describe(blurred, kp.xy)
+            desc = orb.describe(blurred, kp.xy, prefiltered=True)
         return _numpy(xy=kp.xy, desc=desc, valid=kp.valid)
 
     def stages(rgb: np.ndarray) -> Dict[str, tuple]:
@@ -90,10 +90,10 @@ def orb_adapter(num_keypoints: int = 500, threshold: float = 0.05, max_distance:
             gray = gray_of(rgb)
             blurred = image.gaussian_blur(gray, sigma=2.0, radius=3)
             kp = fast.detect(gray, num_keypoints, threshold)
-            desc = orb.describe(blurred, kp.xy)
+            desc = orb.describe(blurred, kp.xy, prefiltered=True)
         return {
             "fast_detect": (lambda g: fast.detect(g, num_keypoints, threshold).xy, (gray,)),
-            "orb_describe": (lambda b, xy: orb.describe(b, xy), (blurred, kp.xy)),
+            "orb_describe": (lambda b, xy: orb.describe(b, xy, prefiltered=True), (blurred, kp.xy)),
             "hamming_match": (lambda d: matching.match_hamming(d, d).idx2, (desc,)),
         }
 

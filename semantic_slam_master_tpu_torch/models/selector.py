@@ -83,3 +83,24 @@ def select_keypoints(saliency: torch.Tensor, num_keypoints: int = 500, nms_radiu
     xs = (indices % W).to(torch.float32)
     scores = torch.gather(flat, 1, indices)
     return SelectedKeypoints(xy=torch.stack([xs, ys], dim=-1), score=scores, valid=valid)
+
+
+def refine_keypoints(saliency: torch.Tensor, xy: torch.Tensor, temperature: float = 0.05) -> torch.Tensor:
+    """Sub-patch keypoint refinement: the softmax centroid (at
+    ``temperature``) of the 3x3 saliency neighbourhood of each selected
+    patch, nearest-sampled with clamped borders, so offsets stay within
+    (-1, 1) patches; the result is clipped to the grid.
+
+    saliency: (B, H, W[, 1]); xy: (B, K, 2) patch coords -> (B, K, 2)."""
+    from ..ops.sampling import nearest_sample
+
+    if saliency.ndim == 4:
+        saliency = saliency[..., 0]
+    B, H, W = saliency.shape
+    offs = [torch.tensor([dx, dy], dtype=xy.dtype, device=xy.device)
+            for dy in (-1.0, 0.0, 1.0) for dx in (-1.0, 0.0, 1.0)]
+    s = torch.stack([nearest_sample(saliency, xy + d) for d in offs], dim=-1)  # (B, K, 9)
+    w = torch.softmax(s / temperature, dim=-1)
+    refined = xy + torch.einsum("bkn,nd->bkd", w, torch.stack(offs, dim=0))
+    lim = torch.tensor([W - 1.0, H - 1.0], dtype=xy.dtype, device=xy.device)
+    return torch.minimum(torch.maximum(refined, torch.zeros_like(lim)), lim)

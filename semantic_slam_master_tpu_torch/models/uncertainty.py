@@ -52,3 +52,12 @@ def expected_error_loss(confidence: torch.Tensor, actual_error: torch.Tensor,
     """L1 between the implied error 1 / (conf + 1e-6) - 1 and the measured one."""
     pred_err = 1.0 / (confidence[..., 0] + 1e-6) - 1.0
     return _masked_mean(torch.abs(pred_err - actual_error), valid)
+
+
+def confidence_mask(confidence: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """(B, N, 1) confidences -> (B, N) bool: at or above ``threshold``, and
+    always the most confident keypoint of each image (the first on a tie)."""
+    conf = confidence[..., 0]
+    best = torch.argmax(conf, dim=-1)
+    keep_best = torch.arange(conf.shape[-1], device=conf.device)[None, :] == best[..., None]
+    return (conf >= threshold) | keep_best

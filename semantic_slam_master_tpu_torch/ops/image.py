@@ -54,6 +54,14 @@ def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
     return k / k.sum()
 
 
+def shift2d(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Zero-padded shift of (B, H, W): ``out[y, x] = img[y - dy, x - dx]``."""
+    B, H, W = img.shape
+    ay, ax = abs(dy), abs(dx)
+    padded = F.pad(img, (ax, ax, ay, ay))
+    return padded[:, ay - dy : ay - dy + H, ax - dx : ax - dx + W]
+
+
 def gaussian_blur(img: torch.Tensor, sigma: float = 1.0, radius: int = 2) -> torch.Tensor:
     """Separable Gaussian blur of (B, H, W), zero-padded, as the same
     shift-add stencil (same taps, same summation order) as the JAX op."""

@@ -1,14 +1,21 @@
 """Oriented-BRIEF (ORB) descriptors (port of ``ops/orb.py``).
 
-The port keeps the JAX package's matmul-structured path for every frame
-width: each keypoint's 32x32 quantised patch (keypoint at (15, 15)) comes
-from ``kernels.patches.gather_aligned_patches`` — the CUDA kernel
-``csrc/aligned_patches.cu`` on the card, its plain version on the CPU —
-then one product against the per-bin difference-selection constants
-gives I(b_t) - I(a_t) for all 30 steering bins, and each keypoint picks
-its own bin. All intensities are exact integers <= 255, so the result is
-bit-identical to the JAX package's ``describe_matmul`` and
-``describe_gather``.
+Two paths give the JAX package's bits:
+
+- the aligned path: each keypoint's 32x32 quantised patch (keypoint at
+  (15, 15)) comes from ``kernels.patches.gather_aligned_patches`` (the
+  CUDA kernel ``csrc/aligned_patches.cu`` on the card, its plain version
+  on the CPU), then one product against the per-bin difference-selection
+  constants gives I(b_t) - I(a_t) for all 30 steering bins, and each
+  keypoint picks its own bin;
+- the gather path (``describe_gather``): dense disc-moment maps for the
+  orientation, then one flat gather of the 512 test points per keypoint.
+
+All intensities are exact integers <= 255, so both are bit-identical to
+the JAX package's ``describe_matmul`` and ``describe_gather`` wherever the
+clamped patch centres leave the 31x31 disc inside the frame (frames of at
+least 32 rows and 33 columns). ``describe`` takes the aligned path there
+and copies JAX's own paths on smaller frames (see its docstring).
 
 Packed descriptor words are int64 holding the uint32 bit patterns of the
 JAX package (torch's uint32 has no shifts on the CPU).
@@ -22,7 +29,10 @@ import math
 import numpy as np
 import torch
 
+from .image import gaussian_blur, shift2d
+from .kernels import patches as kpatch
 from .kernels.patches import gather_aligned_patches
+from .sampling import gather_patches, nearest_sample
 
 PATCH_RADIUS = 15  # ORB's 31x31 patch
 NUM_BITS = 256
@@ -77,24 +87,97 @@ def _orientation_weights() -> np.ndarray:
 
 
 DEFAULT_PATTERN = make_test_pattern()
+_PATTERN = DEFAULT_PATTERN  # the pattern every describe path reads (``set_test_pattern``)
+
+
+def set_test_pattern(pattern: np.ndarray) -> None:
+    """Swap the BRIEF test pattern (256, 4) int8 that every describe path
+    reads (e.g. OpenCV's ``bit_pattern_31_`` for OpenCV-exact descriptors);
+    ``set_test_pattern(DEFAULT_PATTERN)`` restores the default. The
+    derived constants are rebuilt at the next call."""
+    global _PATTERN
+    p = np.asarray(pattern)
+    if p.shape != (NUM_BITS, 4):
+        raise ValueError(f"test pattern must be ({NUM_BITS}, 4), got {p.shape}")
+    if np.abs(p.astype(np.int64)).max() > PATCH_RADIUS:
+        raise ValueError(f"test pattern offsets must lie within +-{PATCH_RADIUS}")
+    _PATTERN = np.ascontiguousarray(p, np.int8)
 
 
 @functools.lru_cache(maxsize=8)
 def _constants(pattern_bytes: bytes, device: str, dtype: torch.dtype):
-    """(bin-select matrix (7680, 1024), moment weights (961, 2)) on device."""
+    """(bin-select matrix (7680, 1024) in ``dtype``, moment weights (961, 2)
+    f32, steered pattern bank (30, 256, 4) int64) on ``device``."""
     pattern = np.frombuffer(pattern_bytes, np.int8).reshape(NUM_BITS, 4)
-    D = _bin_select_matrices(_steered_pattern_bank(pattern))
-    sel = torch.from_numpy(D.reshape(-1, 32 * 32)).to(device=device, dtype=dtype)
+    bank = _steered_pattern_bank(pattern)
+    sel = torch.from_numpy(_bin_select_matrices(bank).reshape(-1, 32 * 32)).to(device=device, dtype=dtype)
     w = torch.from_numpy(_orientation_weights()).to(device)
-    return sel, w
+    return sel, w, torch.from_numpy(bank.astype(np.int64)).to(device)
 
 
-def orientations_from_patches(patches: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid angle atan2(m01, m10) of quantised (B, N, 31, 31)
-    patches; integer moments < 2^24 are exact in f32 in any order."""
+def _device_constants(device: torch.device):
+    """``_constants`` of the current pattern on ``device`` (bf16 selection
+    matrix on the card, f32 on the CPU)."""
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    return _constants(_PATTERN.tobytes(), str(device), dtype)
+
+
+def orientations_from_patches(patches: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angle atan2(m01, m10) of (B, N, 31, 31) patches
+    over the radius-15 disc. For quantised patches the integer moments
+    (< 2^24) are exact in f32 in any order."""
     B, N = patches.shape[:2]
+    weights = _device_constants(patches.device)[1]
     m = patches.reshape(B, N, -1).to(torch.float32) @ weights  # (B, N, 2)
     return torch.atan2(m[..., 1], m[..., 0])
+
+
+def orientations(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation per keypoint from its 31x31 window,
+    gathered by ``sampling.gather_patches`` at radius 15 (the CUDA kernel
+    ``csrc/gather_patches.cu`` on the card). Frames of at least 31x31."""
+    return orientations_from_patches(gather_patches(img, xy, PATCH_RADIUS))
+
+
+def _disc_extents(radius: int) -> np.ndarray:
+    """Half-width of the disc at each |dy| (ORB's umax table)."""
+    dys = np.arange(0, radius + 1)
+    return np.floor(np.sqrt(radius**2 - dys**2 + 1e-9)).astype(np.int32)
+
+
+def dense_moment_maps(img: torch.Tensor, radius: int = PATCH_RADIUS):
+    """Disc moment maps m10(x, y), m01(x, y) of (B, H, W) at every pixel,
+    built as the JAX op builds them: cumulative horizontal sums per disc
+    extent, then combined row by row, in the same order. Zero-padded
+    borders: values within ``radius`` of the edge are not disc-exact.
+    Returns (m10, m01), each (B, H, W)."""
+    extents = _disc_extents(radius)
+    need = set(int(e) for e in extents)
+    T: dict = {}
+    U: dict = {}
+    t = img * 0.0
+    u = img
+    if 0 in need:
+        T[0], U[0] = t, u
+    for e in range(1, radius + 1):
+        t = t + float(e) * (shift2d(img, 0, -e) - shift2d(img, 0, e))
+        u = u + shift2d(img, 0, -e) + shift2d(img, 0, e)
+        if e in need:
+            T[e], U[e] = t, u
+    m10 = T[int(extents[0])]
+    m01 = U[int(extents[0])] * 0.0
+    for dy in range(1, radius + 1):
+        e = int(extents[dy])
+        m10 = m10 + shift2d(T[e], -dy, 0) + shift2d(T[e], dy, 0)
+        m01 = m01 + float(dy) * (shift2d(U[e], -dy, 0) - shift2d(U[e], dy, 0))
+    return m10, m01
+
+
+def orientations_dense(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Per-keypoint orientation sampled from the dense moment maps (equal
+    to the patch orientation away from the borders)."""
+    m10, m01 = dense_moment_maps(img)
+    return torch.atan2(nearest_sample(m01, xy), nearest_sample(m10, xy))
 
 
 def _mod(x: torch.Tensor, y: float) -> torch.Tensor:
@@ -111,40 +194,126 @@ def steered_bins(theta: torch.Tensor) -> torch.Tensor:
     return bins % NUM_ANGLE_BINS
 
 
+def _steered_offsets(theta: torch.Tensor) -> torch.Tensor:
+    """(B, N, 256, 4) int64 rotated test offsets of each keypoint's bin."""
+    return _device_constants(theta.device)[2][steered_bins(theta)]
+
+
 def describe(
     img: torch.Tensor,
     xy: torch.Tensor,
-    pattern: np.ndarray = DEFAULT_PATTERN,
+    theta: torch.Tensor | None = None,
+    blur_sigma: float = 2.0,
+    prefiltered: bool = False,
 ) -> torch.Tensor:
-    """rBRIEF descriptors of the prefiltered (blurred) frame.
+    """rBRIEF descriptors.
 
-    img: (B, H, W) f32 in [0, 1]; xy: (B, N, 2) f32. Returns packed
-    (B, N, 8) int64 words (bit i of word w = test w*32 + i). The
-    orientation is the intensity centroid of each quantised patch.
+    img: (B, H, W) f32 gray in [0, 1], blurred here with ``blur_sigma``
+    unless ``prefiltered``; xy: (B, N, 2) f32; theta: (B, N) radians, the
+    intensity centroid of each quantised patch when None. Returns packed
+    (B, N, 8) int64 words (bit i of word w = test w*32 + i).
+
+    The JAX package dispatches on the width (``describe_matmul`` for
+    widths that are multiples of 32 and at least 64, else
+    ``describe_gather``); both give the same bits wherever the clamped
+    centres keep the disc inside the frame. So here:
+
+    - frames of at least 32x33 take the aligned path (the kernel), equal
+      to either JAX path;
+    - smaller frames that JAX sends to ``describe_matmul`` (H < 32, W a
+      multiple of 32 and >= 64) take the aligned path on the frame with
+      32 - H copies of its first row stacked on top: ``describe_matmul``
+      clamps its row indices into the frame, which gives those rows, and
+      the kernel's row clamp [15, 15] puts every centre where JAX's
+      crossed clamp puts it;
+    - every other frame takes ``describe_gather``, as in JAX.
     """
-    patches = gather_aligned_patches(img, xy)  # (B, N, 32, 32) bf16
-    return describe_from_aligned(patches, pattern)
+    if not prefiltered:
+        img = gaussian_blur(img, sigma=blur_sigma, radius=3)
+    B, H, W = img.shape
+    if H >= kpatch.PATCH and W >= kpatch.PATCH + 1:
+        return describe_from_aligned(gather_aligned_patches(img, xy), theta)
+    if W % 32 == 0 and W >= 64:
+        top = img[:, :1].expand(B, kpatch.PATCH - H, W)
+        padded = torch.cat([top, img], dim=1).contiguous()
+        return describe_from_aligned(gather_aligned_patches(padded, xy), theta)
+    return describe_gather(img, xy, theta, blur_sigma, prefiltered=True)
 
 
-def describe_from_aligned(
-    patches: torch.Tensor, pattern: np.ndarray = DEFAULT_PATTERN
+def describe_gather(
+    img: torch.Tensor,
+    xy: torch.Tensor,
+    theta: torch.Tensor | None = None,
+    blur_sigma: float = 2.0,
+    prefiltered: bool = False,
 ) -> torch.Tensor:
+    """rBRIEF through one flat gather of the 512 test points per keypoint
+    from the quantised frame (``orb.describe_gather``); the orientation,
+    when not given, comes from the dense moment maps of the quantised
+    frame at the clamped centres.
+
+    On a frame too small for the centre clamp a test point can fall
+    outside the frame. The flat index is then read as
+    ``jnp.take_along_axis`` reads it: a negative index counts once from
+    the end, and one still out of range reads NaN, whose comparison gives
+    bit 0."""
+    if not prefiltered:
+        img = gaussian_blur(img, sigma=blur_sigma, radius=3)
+    B, H, W = img.shape
+    N = xy.shape[1]
+    # On a frame below 32x33 the centre clamp crosses and every centre lands
+    # on its upper bound, as jnp.clip puts it.
+    cx, cy = kpatch.patch_centers(xy, H, W)
+    q = kpatch.quantize_u8(img)
+    if theta is None:
+        cxy = torch.stack([cx, cy], dim=-1).to(img.dtype)
+        theta = orientations_dense(q, cxy)
+    offs = _steered_offsets(theta)  # (B, N, 256, 4)
+    ax = cx[..., None] + offs[..., 0]
+    ay = cy[..., None] + offs[..., 1]
+    bx = cx[..., None] + offs[..., 2]
+    by = cy[..., None] + offs[..., 3]
+    idx = torch.cat([(ay * W + ax).reshape(B, N * NUM_BITS), (by * W + bx).reshape(B, N * NUM_BITS)], dim=1)
+    idx = torch.where(idx < 0, idx + H * W, idx)
+    inside = (idx >= 0) & (idx < H * W)
+    vals = torch.gather(q.reshape(B, H * W), 1, torch.where(inside, idx, torch.zeros_like(idx)))
+    vals = torch.where(inside, vals, torch.full_like(vals, float("nan")))
+    ia = vals[:, : N * NUM_BITS].reshape(B, N, NUM_BITS)
+    ib = vals[:, N * NUM_BITS :].reshape(B, N, NUM_BITS)
+    return pack_bits(ia < ib)
+
+
+def describe_from_aligned(patches: torch.Tensor, theta: torch.Tensor | None = None) -> torch.Tensor:
     """All-bin difference tests on quantised (B, N, 32, 32) patches, then
-    each keypoint's own bin. The product is exact: every row of the
-    selection matrix holds one +1 and one -1, intensities are integers
-    <= 255, and bf16 (on the card) or f32 (on the CPU) holds every
-    difference exactly."""
+    each keypoint's own bin (``theta``, else the intensity centroid of the
+    31x31 window). The product is exact: every row of the selection
+    matrix holds one +1 and one -1, intensities are integers <= 255, and
+    bf16 (on the card) or f32 (on the CPU) holds every difference
+    exactly."""
     B, N = patches.shape[:2]
-    dev = patches.device
-    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    sel_mat, weights = _constants(np.ascontiguousarray(pattern, np.int8).tobytes(), str(dev), dtype)
-    theta = orientations_from_patches(patches[..., :31, :31], weights)
+    sel_mat, _, _ = _device_constants(patches.device)
+    if theta is None:
+        theta = orientations_from_patches(patches[..., :31, :31])
     bins = steered_bins(theta)  # (B, N)
-    diff = patches.reshape(B, N, 32 * 32).to(dtype) @ sel_mat.T  # (B, N, 7680)
+    diff = patches.reshape(B, N, 32 * 32).to(sel_mat.dtype) @ sel_mat.T  # (B, N, 7680)
     diff = diff.reshape(B, N, NUM_ANGLE_BINS, NUM_BITS)
     idx = bins[..., None, None].expand(B, N, 1, NUM_BITS)
     picked = torch.gather(diff, 2, idx)[:, :, 0]  # (B, N, 256)
     return pack_bits(picked > 0)
+
+
+def describe_from_patches(patches: torch.Tensor, theta: torch.Tensor | None = None) -> torch.Tensor:
+    """rBRIEF from pre-gathered (B, N, >=31, >=31) patches with the
+    keypoint at (15, 15) (``orb.describe_from_patches``), e.g. the
+    radius-15 windows of ``sampling.gather_patches``."""
+    if theta is None:
+        theta = orientations_from_patches(kpatch.quantize_u8(patches[..., :31, :31]))
+    offs = _steered_offsets(theta)
+    ps = patches.shape[-1]
+    pa = (offs[..., 1] + PATCH_RADIUS) * ps + (offs[..., 0] + PATCH_RADIUS)
+    pb = (offs[..., 3] + PATCH_RADIUS) * ps + (offs[..., 2] + PATCH_RADIUS)
+    flat = kpatch.quantize_u8(patches).reshape(*patches.shape[:2], -1)
+    return pack_bits(torch.gather(flat, -1, pa) < torch.gather(flat, -1, pb))
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

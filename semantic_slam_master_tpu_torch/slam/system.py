@@ -58,6 +58,11 @@ class SlamConfig(NamedTuple):
     min_landmark_weight: float = 0.25
     ba_iters: int = 4
     depth_weight: float = 30.0
+    # Landmark birth filter (``_refine_landmarks``): each of a landmark's
+    # first ``lm_refine_cap`` inlier sightings pulls it to the online mean,
+    # then it freezes. Off by default, as in the JAX package, whose
+    # measurements found it no help at Kinect depth noise.
+    lm_refine_cap: int = 0
 
 
 class SlamOutput(NamedTuple):
@@ -147,6 +152,31 @@ def _insert_landmarks(
     )
 
 
+def _refine_landmarks(
+    state: MapState,
+    T_wc: torch.Tensor,
+    pts_cam_meas: torch.Tensor,
+    lm_idx: torch.Tensor,
+    upd_mask: torch.Tensor,
+    cfg: SlamConfig,
+) -> MapState:
+    """Online-mean landmark position filter for one tracked frame: each
+    selected sighting (camera-frame point, moved to the world by ``T_wc``)
+    pulls its landmark with gain 1/(count+1) while count < cap, then the
+    gain is 0 and the position frozen. ``lm_idx`` is one-to-one on
+    ``upd_mask`` (mutual nearest-neighbour matches)."""
+    M = state.positions.shape[0]
+    obs_world = lie.transform_points(T_wc, pts_cam_meas)  # (N, 3)
+    count = state.lm_obs[lm_idx]
+    alpha = torch.where(count < float(cfg.lm_refine_cap), 1.0 / (count + 1.0), torch.zeros_like(count))
+    blended = state.positions[lm_idx] * (1.0 - alpha[:, None]) + obs_world * alpha[:, None]
+    slots = torch.where(upd_mask, lm_idx, torch.full_like(lm_idx, M))
+    return state._replace(
+        positions=_scatter(state.positions, slots, blended),
+        lm_obs=_scatter(state.lm_obs, slots, count + 1.0),
+    )
+
+
 def _write_keyframe(
     state: MapState,
     T_cw: torch.Tensor,
@@ -231,6 +261,10 @@ def slam_step(
     ok = result.num_inliers >= cfg.min_inliers
     T_cw = torch.where(ok, result.pose, lie.pose_inverse(T_prev_wc))
     T_wc = lie.pose_inverse(T_cw)
+    if cfg.lm_refine_cap > 0:
+        upd_mask = (matched & result.inlier_mask & ok & (feats.depth > 0.05)
+                    & (feats.sem_weight >= cfg.min_landmark_weight))
+        state = _refine_landmarks(state, T_wc, pts_cam_meas, lm_idx, upd_mask, cfg)
 
     n_valid = torch.clamp(torch.sum(feats.valid), min=1)
     inlier_ratio = result.num_inliers / n_valid

@@ -1,7 +1,8 @@
-"""Frontends feeding the SLAM backend (port of ``slam/tracking.py``'s
-``build_pyramid``, ``extract_features`` and ``extract_learned_features``):
-the multi-scale ORB frontend with optional semantic weight maps, and
-the learned frontend's adapter to ``FrameFeatures``."""
+"""Frontends feeding the SLAM backend, and frame-to-frame visual odometry
+(port of ``slam/tracking.py``): the multi-scale ORB frontend with
+optional semantic weight maps, the learned frontend's adapter to
+``FrameFeatures``, and ``track_sequence``, which chains RANSAC PnP poses
+between consecutive frames with JAX's random draws."""
 
 from __future__ import annotations
 
@@ -10,9 +11,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import lie, prng
+from ..core.camera import PinholeCamera, backproject
 from ..models.segmenter import map_coords
-from ..ops import fast, image, orb
+from ..ops import fast, image, matching, orb
 from ..ops.sampling import nearest_sample
+from . import pnp
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -88,7 +92,7 @@ def extract_features(
         w_lvl = None if weight_map is None else image.resize_nearest(weight_map, *img.shape[1:])
         kp = fast.detect(img, int(quota), threshold, nms_radius, subpixel=subpixel, score_weight=w_lvl)
         blurred = image.gaussian_blur(img, sigma=2.0, radius=3)
-        descs.append(orb.describe(blurred, kp.xy))
+        descs.append(orb.describe(blurred, kp.xy, prefiltered=True))
         ry = (H0 - 1) / max(img.shape[1] - 1, 1)
         rx = (W0 - 1) / max(img.shape[2] - 1, 1)
         xys.append(kp.xy * torch.tensor([rx, ry], dtype=kp.xy.dtype, device=kp.xy.device))
@@ -128,23 +132,27 @@ def extract_learned_features(
     rgb: torch.Tensor,
     depth: torch.Tensor,
     weight_map: torch.Tensor | None = None,
+    use_confidence: bool = True,
+    normalized: bool = False,
 ) -> FrameFeatures:
     """Learned frontend -> FrameFeatures: ``model`` (a
-    ``models.frontend.LearnedFrontend``) on (F, H, W, 3) RGB in [0, 1],
-    ImageNet-normalised here, depth (F, H, W) sampled at the keypoints. Descriptors come out f32 (cosine-matched downstream);
-    the uncertainty head's confidence becomes ``sem_weight``, times the
-    optional semantic ``weight_map``.
+    ``models.frontend.LearnedFrontend``) on (F, H, W, 3) RGB in [0, 1]
+    (ImageNet-normalised here unless ``normalized``), depth (F, H, W)
+    sampled at the keypoints. Descriptors come out f32 (cosine-matched
+    downstream); ``sem_weight`` is the uncertainty head's confidence (1
+    when not ``use_confidence``), times the optional semantic
+    ``weight_map``.
 
     The JAX function samples ``weight_map`` at full-resolution pixels
     whatever its size; a 1/4-resolution map (the segmenter's SLAM path)
     is here rescaled onto its grid first, as ``extract_features`` does.
     For a full-resolution map the two agree."""
     with torch.no_grad():
-        out = model(normalize_rgb(rgb))
+        out = model(rgb if normalized else normalize_rgb(rgb))
     xy = out.keypoints_px
     d = nearest_sample(depth, xy)
     valid = out.valid & (d > 0.05) & (d < 15.0)
-    sem_w = out.confidence
+    sem_w = out.confidence if use_confidence else torch.ones_like(d)
     if weight_map is not None:
         sem_w = sem_w * sample_weight_map(weight_map, xy, tuple(rgb.shape[1:3]))
     return FrameFeatures(
@@ -154,4 +162,72 @@ def extract_learned_features(
         valid=valid,
         score=out.scores,
         sem_weight=sem_w.float(),
+    )
+
+
+class TrackingResult(NamedTuple):
+    poses_wc: torch.Tensor  # (F, 4, 4) camera-in-world trajectory
+    num_matches: torch.Tensor  # (F,) matches to the previous frame
+    num_inliers: torch.Tensor  # (F,) PnP inliers
+    rmse: torch.Tensor  # (F,) inlier reprojection rmse
+
+
+def _pair_pose(
+    u: torch.Tensor,
+    feats_prev: FrameFeatures,
+    feats_cur: FrameFeatures,
+    cam: PinholeCamera,
+    max_distance: float = 64.0,
+):
+    """Relative pose T_cur<-prev of one frame pair from its Hamming
+    matches, backprojected with each side's depth; ``u`` (H, 3) are the
+    RANSAC uniforms. Returns (PnPResult, number of matches)."""
+    m = matching.match_hamming(feats_prev.desc, feats_cur.desc, feats_prev.valid, feats_cur.valid,
+                               max_distance=max_distance)
+    idx2 = m.idx2
+    pts_prev = backproject(feats_prev.xy, feats_prev.depth, cam)
+    xy_cur = feats_cur.xy[idx2]
+    d_cur = feats_cur.depth[idx2]
+    pts_cur = backproject(xy_cur, d_cur, cam)
+    valid = m.valid & (d_cur > 0.05)
+    # A correspondence is as trustworthy as its more dynamic end.
+    w = feats_prev.sem_weight * feats_cur.sem_weight[idx2]
+    return pnp.ransac_pose(u, pts_prev, pts_cur, xy_cur, cam, valid, weights=w), m.count()
+
+
+def track_sequence(
+    key: np.ndarray,
+    features: FrameFeatures,
+    cam: PinholeCamera,
+    min_inliers: int = 12,
+    num_hypotheses: int = 64,
+) -> TrackingResult:
+    """Chain relative poses over a sequence of per-frame ORB features.
+    ``key`` is a ``core.prng`` key ((2,) uint32, e.g. ``prng.PRNGKey(0)``);
+    frame f > 0 draws its RANSAC uniforms from the f-th of
+    ``split(key, F)``, as the JAX scan does. A frame with fewer than
+    ``min_inliers`` inliers keeps the previous pose (identity relative
+    pose)."""
+    F = features.xy.shape[0]
+    dev = features.xy.device
+    keys = prng.split(key, F)
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    poses, n_matches, n_inliers, rmse = [eye], [0], [0], [0.0]
+    T_prev_wc = eye
+    for f in range(1, F):
+        u = torch.from_numpy(prng.uniform(keys[f], (num_hypotheses, 3))).to(dev)
+        prev = FrameFeatures(*[x[f - 1] for x in features])
+        cur = FrameFeatures(*[x[f] for x in features])
+        result, count = _pair_pose(u, prev, cur, cam)
+        T_rel = torch.where(result.num_inliers >= min_inliers, result.pose, eye)  # cur <- prev
+        T_prev_wc = T_prev_wc @ lie.pose_inverse(T_rel)
+        poses.append(T_prev_wc)
+        n_matches.append(count)
+        n_inliers.append(result.num_inliers)
+        rmse.append(result.rmse)
+    return TrackingResult(
+        poses_wc=torch.stack(poses),
+        num_matches=torch.stack([torch.as_tensor(v, device=dev) for v in n_matches]),
+        num_inliers=torch.stack([torch.as_tensor(v, device=dev) for v in n_inliers]),
+        rmse=torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev) for v in rmse]),
     )

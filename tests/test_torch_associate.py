@@ -72,4 +72,5 @@ def test_dispatcher_lists_the_new_commands(capsys):
 
     assert dispatcher.main([]) == 0
     listed = [line.split()[0] for line in capsys.readouterr().out.splitlines()[2:] if line.strip()]
-    assert listed == ["run-slam", "evaluate", "run-tests", "associate", "train", "train-segmenter"]
+    assert listed == ["run-slam", "evaluate", "run-tests", "associate", "train", "train-segmenter",
+                      "check-setup", "download-tum", "visualize", "bench"]

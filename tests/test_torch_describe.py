@@ -31,6 +31,6 @@ def test_describe_bit_identical(shape):
     blurred = jimage.gaussian_blur(gray, sigma=2.0, radius=3)
     ref_m = np.asarray(jax.jit(lambda b, x: jorb.describe_matmul(b, x, prefiltered=True))(blurred, kp.xy))
     ref_g = np.asarray(jax.jit(lambda b, x: jorb.describe_gather(b, x, prefiltered=True))(blurred, kp.xy))
-    got = torb.describe(_t(blurred), _t(kp.xy)).numpy()
+    got = torb.describe(_t(blurred), _t(kp.xy), prefiltered=True).numpy()
     np.testing.assert_array_equal(got, ref_m.astype(np.int64))
     np.testing.assert_array_equal(got, ref_g.astype(np.int64))

@@ -182,3 +182,48 @@ def test_gather_patches_refuses_grad_on_card(cuda):
     with pytest.raises(ValueError, match="no backward"):
         kgather.gather_patches(img, centres, 10)
     assert kgather.gather_patches.launches == before
+
+
+def test_orb_patch_paths_at_radius_15_match_cpu(cuda):
+    """``orb.orientations`` and ``orb.describe_from_patches`` take the
+    gather kernel at radius 15 (31x31 windows): at the ORB path's level-0
+    shape, the windows equal the plain version's, one launch per call, and
+    the orientations and descriptors equal the CPU's. The frame holds
+    u8-grid intensities, as every ORB path quantises before its moments:
+    the moment sums are then exact integers in any order, and the angles
+    differ by atan2's last bits at most (on [0, 1) floats the 961-term sums
+    round in cuBLAS's order, and a near-zero moment turns that into
+    ~2e-4 rad)."""
+    from semantic_slam_master_tpu_torch.ops import orb
+
+    B, H, W, n = 4, 480, 640, 202
+    gen = torch.Generator().manual_seed(6)
+    img = kpatch.quantize_u8(torch.rand((B, H, W), generator=gen))
+    xy = _centers(B, n, H, W, gen)
+    img_c, xy_c = img.to(cuda), xy.to(cuda)
+    assert torch.equal(kgather.gather_patches(img_c, xy_c, 15).cpu(), kgather.gather_patches_reference(img, xy, 15, 31))
+    before = kgather.gather_patches.launches
+    theta = orb.orientations(img_c, xy_c)
+    patches = kgather.gather_patches(img_c / 255.0, xy_c, 15)
+    desc = orb.describe_from_patches(patches)
+    assert kgather.gather_patches.launches == before + 2
+    torch.testing.assert_close(theta.cpu(), orb.orientations(img, xy), rtol=0, atol=1e-6)
+    assert torch.equal(desc.cpu(), orb.describe_from_patches(kgather.gather_patches(img / 255.0, xy, 15)))
+
+
+@pytest.mark.parametrize("shape", [(24, 32), (32, 32), (24, 64), (32, 64), (48, 80), (120, 100)])
+def test_describe_on_small_levels_matches_cpu(cuda, shape):
+    """``orb.describe`` on pyramid-floor frames on the card equals the CPU:
+    the aligned kernel where the frame takes it (with the row padding for
+    (24, 64)), the gather path elsewhere."""
+    from semantic_slam_master_tpu_torch.ops import orb
+
+    H, W = shape
+    gen = torch.Generator().manual_seed(7)
+    img = torch.rand((2, H, W), generator=gen)
+    xy = torch.rand((2, 40, 2), generator=gen) * torch.tensor([W + 10.0, H + 10.0]) - 5.0
+    before = kpatch.gather_aligned_patches.launches
+    got = orb.describe(img.to(cuda), xy.to(cuda))
+    aligned = (H >= 32 and W >= 33) or (W % 32 == 0 and W >= 64)
+    assert kpatch.gather_aligned_patches.launches == before + int(aligned)
+    assert torch.equal(got.cpu(), orb.describe(img, xy))
