@@ -161,6 +161,23 @@ device synchronised at the end of each):
    ``matplotlib`` is installed (where it is not, the script says so and
    draws nothing).
 29. check-setup -- ``check-setup`` exits 0 on the card.
+30. fleet SLAM -- the TUM phase's 60 decoded frames of the ORB path's
+   world, their features from ``extract_features`` on the card (both ORB
+   kernels 4x per 16-frame chunk), cut into FLEET_SEQUENCES disjoint
+   15-frame sequences, then ``slam.parallel.run_slam_fleet`` with the
+   default ``SlamConfig`` (2048 landmark slots) and one JAX key per
+   sequence: each sequence's poses equal its own ``run_slam`` on the card
+   within the gap between two card runs of it; the CPU's fleet on the
+   same features against the card's (FLEET_POSE_TOL).
+31. training over a mesh -- phase 23's recipe (ViT-S/16, 448 px, 8 pairs,
+   sub-patch refinement, seeded), one step from the seeded weights at
+   float32 and at bfloat16: without a mesh; through the mesh code on a
+   1x1 mesh under NCCL; and on two gloo ranks spawned on the one card
+   (CUDA tensors) at 2x1 and 1x2. 1x1 against the step without a mesh,
+   2x1 and 1x2 against 1x1 (figures, Adam's moments, parameters,
+   BatchNorm statistics; bounds at the constants); every rank's
+   first-step seconds, peak memory and gather_patches launches (2 a
+   step) printed.
 
 Every path that runs a kernel resets the launch counters just before it
 and reads them just after; the kernels line sums them (``launches``)
@@ -342,6 +359,41 @@ SEG_TRAIN_ACC_MIN = min(SEG_TRAIN_JAX_ACC) - 0.03
 SEG_TRAIN_LOSS_MAX = 2 * max(SEG_TRAIN_JAX_LOSS)
 SEG_TRAIN_JAX_ATE_M = (0.025214, 0.579714, 0.652049, 0.633786)
 SEG_TRAIN_ATE_BOUND_M = 2 * max(SEG_TRAIN_JAX_ATE_M)
+# Phase 30: the ORB path's 60 frames (as the TUM phase decodes them) cut
+# into FLEET_SEQUENCES disjoint sequences. The CPU's fleet on the card's
+# features: matches and keyframes equal, inlier counts within one, poses
+# within phase 16's bounds (m, rad) on all but FLEET_POSE_MISSES frames.
+# RANSAC keeps its refined pose only if the refined support is not below
+# the hypothesis's; where the two are level, the devices' rounding can
+# decide it differently. On rendered frames of this world an H100 saw it
+# once in 60 frames: the last frame of one sequence, equal inlier counts,
+# poses 0.0157 m apart, every other frame within 5.3e-4 m.
+FLEET_SEQUENCES = 4
+FLEET_POSE_TOL = (1e-3, 1e-3)
+FLEET_POSE_MISSES = 2
+# Phase 31: the phase-23 recipe's first batch (ViT-S/16, 448 px, 8 pairs),
+# one step from the seeded weights over 1x1 (NCCL; held against the step
+# without a mesh) and the meshes MESH_SHAPES (two gloo ranks on the one
+# card; held against 1x1), at float32 and at the recipe's bfloat16. At float32 a mesh changes
+# only summation orders (the gradient's sum over ranks, BatchNorm's sums,
+# the row-parallel partial products), so every figure and every array
+# class (Adam's moments, the parameters, the BatchNorm statistics, each
+# relative to its largest entry) is held to MESH_GAP_FACTOR x RUN_GAP.
+# RUN_GAP is what summation order alone does to a train step on this card:
+# the largest gap of Adam's moments between repeats of phase 22's bf16
+# step with PyTorch's default kernels (scatter-add atomics in
+# torch.gather's backward; the repeats are bit-equal under deterministic
+# kernels): profile_determinism.py on an NVIDIA H100 80GB HBM3, 700 W.
+# At bfloat16 the split matmuls also round their partial sums to bf16 (as
+# Megatron's do) and keypoints flip, so the figures are held to
+# RESUME_GAP_BOUND, the bf16 gap between the two frameworks, and the arrays
+# printed; 1x1 keeps the float32 bound.
+MESH_SHAPES = ((2, 1), (1, 2))
+MESH_DTYPES = ("float32", "bfloat16")
+RUN_GAP = 0.007982
+MESH_GAP_FACTOR = 4.0
+MESH_COLLECTIVE_TIMEOUT_S = 120
+MESH_JOIN_TIMEOUT_S = 240
 TARGET_TOTAL_S = 600
 SMALL_LEVEL_SIZES = [(24, 32), (32, 32), (24, 64), (32, 64), (48, 80), (120, 100)]
 DESCRIBE_SAME_MIN = 0.999  # descriptors card vs CPU on identical inputs (an atan2 ulp on a bin edge)
@@ -999,7 +1051,7 @@ def tum_input(torch, synthetic, tum, native_io, prefetch, root: str, device: str
         f"{MAIN_FRAMES / t_stream:.2f} frames/s decoded and streamed")
     if n_chunks != -(-MAIN_FRAMES // TUM_CHUNK) or transfer.pinned_copies != pinned:
         raise AssertionError("frame_chunks did not stream every chunk from pinned buffers")
-    return {"env": env, "decoder": decoder, "rates": rates}
+    return {"env": env, "decoder": decoder, "rates": rates, "frames": (gray, depth, cam)}
 
 
 def suite_figures(r: dict) -> dict:
@@ -1440,6 +1492,262 @@ def cli_tool_phases(torch, synthetic, tracking, record, reset_counts, read_count
             raise AssertionError(f"check-setup exited {rc}: {lines}")
 
 
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def kernel_counts() -> tuple:
+    """(reset, read) of the three kernel wrappers' launch counts."""
+    from semantic_slam_master_tpu_torch.ops.kernels import fast_score as kfast
+    from semantic_slam_master_tpu_torch.ops.kernels import gather_patches as kgather
+    from semantic_slam_master_tpu_torch.ops.kernels import patches as kpatch
+
+    counters = {"fast_score": kfast.fast_score, "gather_aligned_patches": kpatch.gather_aligned_patches,
+                "gather_patches": kgather.gather_patches}
+
+    def reset_counts():
+        for c in (*counters.values(), kgather.gather_patches_padded):
+            c.launches = 0
+
+    def read_counts():
+        return {name: c.launches for name, c in counters.items()}
+
+    return reset_counts, read_counts
+
+
+def fleet_phase(torch, frames, record, reset_counts, read_counts, card, device: str = "cuda") -> None:
+    """Phase 30 (the module docstring): the fleet of FLEET_SEQUENCES disjoint
+    sequences cut from the ORB path's frames, on the card and the CPU."""
+    from semantic_slam_master_tpu_torch.cli import run_slam_cli
+    from semantic_slam_master_tpu_torch.core import prng
+    from semantic_slam_master_tpu_torch.slam import parallel as fleet, system, tracking
+
+    gray, depth, cam = frames
+    S = FLEET_SEQUENCES
+    F = len(gray) // S
+    reset_counts()
+    t0 = time.perf_counter()
+    feats = run_slam_cli.features_for_frames(gray, depth, 512, torch.device(device))
+    seqs = tracking.FrameFeatures(*[x[: S * F].reshape(S, F, *x.shape[1:]) for x in feats])
+    sync(torch, device)
+    frontend_s = time.perf_counter() - t0
+    keys = prng.split(prng.PRNGKey(SEED), S)
+    cfg = system.SlamConfig()
+    t0 = time.perf_counter()
+    out = fleet.run_slam_fleet(keys, seqs, cam, cfg)
+    sync(torch, device)
+    fleet_s = time.perf_counter() - t0
+    counts = read_counts()
+    chunks = -(-len(gray) // run_slam_cli.FRONTEND_CHUNK)
+    record("fleet", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+    if out.poses_wc.shape != (S, F, 4, 4) or not bool(torch.isfinite(out.poses_wc).all()):
+        raise AssertionError(f"fleet poses {tuple(out.poses_wc.shape)}, finite {bool(torch.isfinite(out.poses_wc).all())}")
+    runs = []
+    for _ in range(2):  # each sequence's own run_slam on the card, twice
+        runs.append([system.run_slam(torch.from_numpy(prng.key_slam_uniforms(keys[s], F, cfg.num_hypotheses)).to(device),
+                                     tracking.FrameFeatures(*[x[s] for x in seqs]), cam, cfg).poses_wc.cpu().numpy()
+                     for s in range(S)])
+    poses = out.poses_wc.cpu().numpy()
+    gap = max(float(np.abs(poses[s] - runs[0][s]).max()) for s in range(S))
+    run_gap = max(float(np.abs(runs[1][s] - runs[0][s]).max()) for s in range(S))
+    t0 = time.perf_counter()
+    cpu = fleet.run_slam_fleet(keys, tracking.FrameFeatures(*[x.cpu() for x in seqs]), cam, cfg)
+    cpu_s = time.perf_counter() - t0
+    agree = np.array([poses_agree(poses[s][f:f + 1], cpu.poses_wc[s][f:f + 1].numpy())
+                      for s in range(S) for f in range(F)])
+    dt, dr = agree.max(0)
+    misses = int(((agree[:, 0] > FLEET_POSE_TOL[0]) | (agree[:, 1] > FLEET_POSE_TOL[1])).sum())
+    same = {name: bool(torch.equal(getattr(out, name).cpu(), getattr(cpu, name)))
+            for name in ("num_matches", "is_keyframe")}
+    inlier_gap = int((out.num_inliers.cpu() - cpu.num_inliers).abs().max())
+    log(f"  {S} sequences of {F} frames (the TUM phase's 60 decoded frames of the ORB path's world), SlamConfig() "
+        f"({cfg.num_landmarks} landmark slots): fleet {fleet_s:.2f} s on the card (frontend {frontend_s:.2f} s), "
+        f"CPU fleet {cpu_s:.2f} s; keyframes {out.is_keyframe.sum(1).tolist()} inliers mean "
+        f"{out.num_inliers.float().mean(1).tolist()}; launches {counts} ({card})")
+    log(f"  fleet against each sequence's own run_slam on the card: max |pose difference| {gap!r} (two card runs "
+        f"of run_slam: {run_gap!r}); card against the CPU fleet: equal {same}, inlier counts within "
+        f"{inlier_gap}, poses within {dt:.3g} m, {dr:.3g} rad, {misses} of {S * F} frames beyond "
+        f"{FLEET_POSE_TOL[0]} m / {FLEET_POSE_TOL[1]} rad (at most {FLEET_POSE_MISSES})")
+    if not gap <= run_gap:
+        raise AssertionError(f"the fleet's poses differ from each sequence's run_slam by {gap}, more than two runs "
+                             f"of run_slam on the card ({run_gap})")
+    if not (all(same.values()) and inlier_gap <= 1 and misses <= FLEET_POSE_MISSES):
+        raise AssertionError(f"fleet card against CPU: equal {same}, inliers within {inlier_gap}, {misses} frames "
+                             f"beyond the pose bounds (largest {dt} m, {dr} rad)")
+
+
+def mesh_step(cfg, batch, mesh, device, reset_counts, read_counts, dtype: str = "bfloat16") -> dict:
+    """One ViT-S/16 train step from the seeded weights: through the mesh
+    code on ``mesh`` (the batch cut to this rank's slice), or without a
+    mesh (``mesh`` None). Returns the step's figures, the full checkpoint
+    arrays (moments, parameters, statistics), its device seconds, the peak
+    memory and the kernel launches."""
+    import torch
+
+    from semantic_slam_master_tpu_torch.parallel import mesh as mesh_lib
+    from semantic_slam_master_tpu_torch.train import trainer
+
+    model, state = trainer.create_train_state(cfg, 16, device=device, dtype=getattr(torch, dtype))
+    if mesh is None:
+        tx = trainer.build_optimizer(cfg, 16, trainer.flax_order(state.trainable))
+    else:
+        tx = trainer.to_mesh(model, state, cfg, 16, mesh)
+        batch = mesh_lib.shard_batch(mesh, batch)
+    step = trainer.make_train_step(model, cfg, tx, mesh)
+    b = trainer.to_device(batch, device)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    reset_counts()
+    state, out = step(state, b)
+    counts = read_counts()
+    r = {"figures": {k: float(v) for k, v in out.items()}, "counts": counts,
+         "step_s": None, "peak_bytes": None}
+    if cuda:
+        ev[1].record()
+        torch.cuda.synchronize()
+        r["step_s"] = ev[0].elapsed_time(ev[1]) / 1e3
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+    r["tree"] = trainer.checkpoint_tree(model, state, mesh=mesh)
+    return r
+
+
+def tree_gaps(got: dict, want: dict) -> dict:
+    """Largest |got - want| over each class of checkpoint arrays (Adam's
+    moments, the parameters, the BatchNorm statistics), relative to the
+    class's largest |want|."""
+    out = {}
+    for cls in ("opt_state/mu", "opt_state/nu", "params", "batch_stats"):
+        keys = [k for k in want if k.startswith(cls + "/")]
+        scale = max(float(np.abs(want[k]).max()) for k in keys)
+        out[cls] = max(float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in keys) / scale
+    return out
+
+
+def mesh_rank(rank: int, port: int, cfg_path: str, batch_path: str, out_dir: str, device: str) -> None:
+    """Phase 31: one of two gloo ranks on the one card, taking a step on each
+    mesh of MESH_SHAPES at each of MESH_DTYPES in turn; writes
+    ``rank<r>.pkl`` to ``out_dir``."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from semantic_slam_master_tpu_torch.parallel import mesh as mesh_lib
+    from semantic_slam_master_tpu_torch.train import config as config_mod
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S))
+    try:
+        reset_counts, read_counts = kernel_counts()
+        cfg = config_mod.load_config(cfg_path)
+        with np.load(batch_path) as z:
+            batch = {k: z[k] for k in z.files}
+        results = {}
+        for dtype in MESH_DTYPES:
+            for shape in MESH_SHAPES:
+                cfg.training.mesh_data, cfg.training.mesh_model = shape
+                r = mesh_step(cfg, batch, mesh_lib.make_mesh(*shape), device, reset_counts, read_counts, dtype)
+                if rank != 0:
+                    del r["tree"]
+                results[(dtype, *shape, "gloo", rank)] = r
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_training_phase(torch, record, reset_counts, read_counts, card, device: str = "cuda") -> None:
+    """Phase 31 (the module docstring): a ViT-S/16 step over a mesh, one
+    NCCL rank and two gloo ranks on the one card, against the step without
+    a mesh, at each of MESH_DTYPES."""
+    import multiprocessing
+    import pickle
+
+    import torch.distributed as dist
+
+    from semantic_slam_master_tpu_torch.cli import train_cli
+    from semantic_slam_master_tpu_torch.parallel import mesh as mesh_lib
+    from semantic_slam_master_tpu_torch.train import config as config_mod
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = derive_config("vits", os.path.join(tmp, "save"), os.path.join(tmp, "vits.yaml"))
+        cfg = config_mod.load_config(cfg_path)
+        batch = next(iter(train_cli._synthetic_pair_batches(cfg, split_seed=0)(1)))
+        batch_path = os.path.join(tmp, "batch.npz")
+        np.savez(batch_path, **batch)
+        refs, results = {}, {}
+        dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+        try:
+            for dtype in MESH_DTYPES:
+                refs[dtype] = mesh_step(cfg, batch, None, device, reset_counts, read_counts, dtype)
+                results[(dtype, 1, 1, "nccl", 0)] = mesh_step(cfg, batch, mesh_lib.make_mesh(1, 1), device,
+                                                              reset_counts, read_counts, dtype)
+        finally:
+            dist.destroy_process_group()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=mesh_rank, args=(r, port, cfg_path, batch_path, tmp, device)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, MESH_JOIN_TIMEOUT_S - (time.perf_counter() - t0)))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        if hung or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"the two gloo ranks exited {[p.exitcode for p in procs]} "
+                                 f"({len(hung)} killed after {MESH_JOIN_TIMEOUT_S} s)")
+        log(f"  two gloo ranks on the card: {time.perf_counter() - t0:.2f} s for "
+            f"{len(MESH_DTYPES) * len(MESH_SHAPES)} steps each, start-up and seeded inits included")
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                results.update(pickle.load(f))
+        bound = MESH_GAP_FACTOR * RUN_GAP
+        for (dtype, nd, nm, backend, r), res in results.items():
+            name = f"train_mesh_{nd}x{nm}_{backend}_{dtype}_rank{r}"
+            train_phase_launches(res["counts"], 1, name)
+            record(name, res["counts"], {"gather_patches": 2})
+            line = (f"  {dtype} {nd}x{nm} {backend} rank {r}: first step {res['step_s']} s (CUDA events), peak "
+                    f"torch.cuda.max_memory_allocated {res['peak_bytes']} bytes ({card})")
+            if "tree" in res:
+                # 1x1 against the step without a mesh, the gloo ranks against 1x1
+                ref, against = ((refs[dtype], "the step without a mesh") if backend == "nccl" else
+                                (results[(dtype, 1, 1, "nccl", 0)], "1x1"))
+                fig, key = figure_gap(res["figures"], ref["figures"])
+                gaps = tree_gaps(res["tree"], ref["tree"])
+                line += f"; against {against}: figures {fig!r} at {key}, arrays {gaps}"
+                exact = dtype == "float32" or (nd, nm) == (1, 1)
+                bad = {k: v for k, v in gaps.items() if not v <= bound} if exact else {}
+                if res["figures"]["skipped"] != 0.0 or not fig <= (bound if exact else RESUME_GAP_BOUND) or bad:
+                    raise AssertionError(f"{dtype} {nd}x{nm} {backend}: figures {fig} at {key}, arrays {gaps}")
+            log(line)
+        log(f"  bounds: at float32 (and 1x1 at bfloat16) every figure and array class within {bound:.6g} = "
+            f"{MESH_GAP_FACTOR} x RUN_GAP; at bfloat16 the figures within {RESUME_GAP_BOUND:.4g}")
+
+
 def main() -> int:
     import torch
 
@@ -1462,15 +1770,7 @@ def main() -> int:
     from semantic_slam_master_tpu_torch.slam import loop_closing, online, system, tracking
     from semantic_slam_master_tpu_torch.train import config as config_mod
 
-    counters = {"fast_score": kfast.fast_score, "gather_aligned_patches": kpatch.gather_aligned_patches,
-                "gather_patches": kgather.gather_patches}
-
-    def reset_counts():
-        for c in (*counters.values(), kgather.gather_patches_padded):
-            c.launches = 0
-
-    def read_counts():
-        return {name: c.launches for name, c in counters.items()}
+    reset_counts, read_counts = kernel_counts()
 
     with phase("device"):
         smi = subprocess.run(
@@ -1515,7 +1815,7 @@ def main() -> int:
     with phase("ORB frontend card vs cpu"):
         check_frontend(torch, tracking, synthetic, seg_mod)
 
-    launches = {name: {} for name in counters}
+    launches = {name: {} for name in read_counts()}
 
     def record(path: str, counts: dict, needed) -> None:
         """Keep one path's launch counts; fail if a kernel it runs (with
@@ -1685,7 +1985,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tum_root:
         with phase("TUM input: write, decode (native and plain), pinned frame_chunks to the card"):
-            tum_input(torch, synthetic, tum, native_io, prefetch, tum_root)
+            tum_frames = tum_input(torch, synthetic, tum, native_io, prefetch, tum_root)["frames"]
 
         with phase("TUM main path: run-slam --data-root + evaluate --data-root"), \
                 tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1724,6 +2024,14 @@ def main() -> int:
     training_phases(torch, run_slam_cli, evaluate_cli, config_mod, record, reset_counts, read_counts, card)
     cli_tool_phases(torch, synthetic, tracking, record, reset_counts, read_counts, card, path_frames)
     del path_frames
+    with phase(f"30. fleet SLAM: {FLEET_SEQUENCES} disjoint sequences of the ORB path's frames, run_slam_fleet "
+               "on the card against each sequence's run_slam and the CPU fleet"):
+        fleet_phase(torch, tum_frames, record, reset_counts, read_counts, card)
+    del tum_frames
+    with phase(f"31. a ViT-S/16 train step over a mesh at {' and '.join(MESH_DTYPES)}: 1x1 under NCCL, "
+               f"{' and '.join(f'{d}x{m}' for d, m in MESH_SHAPES)} on two gloo ranks of the one card, against "
+               "the step without a mesh"):
+        mesh_training_phase(torch, record, reset_counts, read_counts, card)
 
     kernels = []
     for name, src, replaces, r, timed_as in (

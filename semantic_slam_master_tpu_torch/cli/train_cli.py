@@ -7,6 +7,12 @@ for the same config and epoch they give the same arrays, bit for bit),
 and runs ``train.trainer.fit`` with console / JSONL / wandb sinks and
 best-checkpoint retention (``<save_dir>/best_model.npz``). Runs on the
 card unless ``--device cpu``; without a card it raises.
+
+Over a mesh (``training.mesh_data`` x ``mesh_model`` in the YAML) it runs
+under ``torchrun``, one process per rank, e.g. ``torchrun
+--nproc-per-node 4 -m semantic_slam_master_tpu_torch train --config
+C.yaml`` for a 2 x 2 mesh: NCCL when each rank has a card, gloo when
+ranks share one. Only the first rank logs to the sinks and writes files.
 """
 
 from __future__ import annotations
@@ -149,11 +155,16 @@ def main(argv=None):
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = parser.parse_args(argv)
 
+    import torch.distributed as dist
+
     from ..core.device import resolve_device
+    from ..parallel import mesh as mesh_lib
     from ..train import config as config_mod, trainer
     from ..utils import sinks
 
     device = resolve_device(args.device)
+    launched = mesh_lib.init_from_env(device)
+    first = not dist.is_initialized() or dist.get_rank() == 0
     cfg = config_mod.load_config(args.config)
     if args.synthetic:
         cfg.dataset.synthetic = True
@@ -171,11 +182,13 @@ def main(argv=None):
         val_fn = _tum_pair_batches(cfg, cfg.dataset.val_sequences, False)
         val_batches = lambda: val_fn(0)  # noqa: E731
 
-    sink_list = [sinks.ConsoleSink()]
-    if args.jsonl_log:
-        sink_list.append(sinks.JsonlSink(args.jsonl_log))
-    if cfg.logging.use_wandb:
-        sink_list.append(sinks.WandbSink(cfg.logging.project, cfg.logging.run_name, config_mod.to_dict(cfg)))
+    sink_list = []
+    if first:
+        sink_list.append(sinks.ConsoleSink())
+        if args.jsonl_log:
+            sink_list.append(sinks.JsonlSink(args.jsonl_log))
+        if cfg.logging.use_wandb:
+            sink_list.append(sinks.WandbSink(cfg.logging.project, cfg.logging.run_name, config_mod.to_dict(cfg)))
     sink = sinks.MultiSink(sink_list)
 
     steps = args.steps_per_epoch or cfg.training.steps_per_epoch or 16
@@ -184,7 +197,10 @@ def main(argv=None):
                     init_from=args.init_from, resume_from=args.resume, device=device)
     finally:
         sink.close()
-    print(f"done; best checkpoint in {Path(cfg.training.save_dir) / 'best_model.npz'}")
+        if launched:
+            dist.destroy_process_group()
+    if first:
+        print(f"done; best checkpoint in {Path(cfg.training.save_dir) / 'best_model.npz'}")
     return 0
 
 

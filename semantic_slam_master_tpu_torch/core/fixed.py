@@ -74,6 +74,48 @@ def quantile(x: torch.Tensor, q: float, dim: int = -1) -> torch.Tensor:
     return torch.where(torch.isnan(x).any(dim=-1), torch.full_like(out, float("nan")), out)
 
 
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None, eps: float = 1e-8) -> torch.Tensor:
+    """Mean of ``x`` over ``mask`` along ``dim`` (all axes when None), the
+    count floored at ``eps``; the mask applied as ``where(mask, x, 0)``,
+    the select XLA compiles JAX's ``x * mask`` into."""
+    m = mask.to(x.dtype)
+    dims = tuple(range(x.ndim)) if dim is None else dim
+    num = torch.sum(torch.where(mask, x, torch.zeros_like(x)), dim=dims)
+    return num / torch.clamp(torch.sum(m, dim=dims), min=eps)
+
+
+def masked_var(x: torch.Tensor, mask: torch.Tensor, dim=None, eps: float = 1e-8) -> torch.Tensor:
+    """Biased variance of ``x`` over ``mask`` (``masked_mean`` of the
+    squared deviations from the masked mean)."""
+    mean = masked_mean(x, mask, dim=dim)
+    if dim is not None:
+        mean = mean.unsqueeze(dim)
+    return masked_mean((x - mean) ** 2, mask, dim=dim, eps=eps)
+
+
+def pad_axis_to(x: torch.Tensor, size: int, dim: int = 0, value=0) -> torch.Tensor:
+    """Pad ``x`` along ``dim`` up to ``size`` with ``value``; raises when
+    the axis is already longer."""
+    cur = x.shape[dim]
+    if cur == size:
+        return x
+    if cur > size:
+        raise ValueError(f"axis {dim} already larger ({cur}) than target {size}")
+    shape = list(x.shape)
+    shape[dim] = size - cur
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim=dim)
+
+
+def finite_or(x: torch.Tensor, fallback) -> torch.Tensor:
+    """Non-finite entries replaced with ``fallback``."""
+    return torch.where(torch.isfinite(x), x, torch.as_tensor(fallback, dtype=x.dtype, device=x.device))
+
+
+def round_up(x: int, multiple: int) -> int:
+    """``x`` rounded up to a multiple of ``multiple``."""
+    return ((x + multiple - 1) // multiple) * multiple
+
+
 def inv3x3(V: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     """Closed-form batched 3x3 inverse (adjugate / determinant)."""
     a, b, c = V[..., 0, 0], V[..., 0, 1], V[..., 0, 2]

@@ -72,10 +72,16 @@ def uniform(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
 
 def slam_uniforms(seed: int, num_frames: int, num_hypotheses: int) -> np.ndarray:
     """(F, H, 3) float32 RANSAC uniforms of the JAX ``run_slam`` for
-    ``PRNGKey(seed)``: it splits the key into one per frame, and frame
-    f > 0 draws ``uniform(keys[f], (H, 3))`` (frame 0 bootstraps the map
-    and draws nothing, so its row is zeros)."""
-    keys = split(PRNGKey(seed), num_frames)
+    ``PRNGKey(seed)`` (:func:`key_slam_uniforms`)."""
+    return key_slam_uniforms(PRNGKey(seed), num_frames, num_hypotheses)
+
+
+def key_slam_uniforms(key: np.ndarray, num_frames: int, num_hypotheses: int) -> np.ndarray:
+    """(F, H, 3) float32 RANSAC uniforms of the JAX ``run_slam`` for
+    ``key``: it splits the key into one per frame, and frame f > 0 draws
+    ``uniform(keys[f], (H, 3))`` (frame 0 bootstraps the map and draws
+    nothing, so its row is zeros)."""
+    keys = split(np.asarray(key, np.uint32), num_frames)
     out = np.zeros((num_frames, num_hypotheses, 3), np.float32)
     out[1:] = _uniform(keys[1:], (num_hypotheses, 3))
     return out

@@ -26,7 +26,7 @@ class MlpBlock(nn.Module):
         self.fc2 = Dense(hidden, dim, gen, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+        return self.fc2(gelu(self.fc1(x, sharded=True)), sharded=True)
 
 
 class Attention(nn.Module):

@@ -15,6 +15,14 @@ the flax layer it replaces does:
   the running statistics by flax's rule, ``ra <- 0.9 ra + 0.1 batch``
   (not ``F.batch_norm``'s: that one updates with the unbiased variance).
 
+On a mesh (``parallel/tp.py::shard_module``) a ``Dense`` can hold a
+tensor-parallel block of its weight: a column-parallel one its block of
+outputs (its input's gradient summed over the 'model' ranks), a
+row-parallel one its block of inputs (its partial products summed, then
+the whole bias added); and a ``BatchNorm`` in training mode takes its
+statistics over the global batch, the sums of x and x^2 added over the
+'data' ranks.
+
 Parameters are drawn on the CPU from an explicit ``torch.Generator``, so
 a seed gives the same weights on every device.
 """
@@ -26,6 +34,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import mesh as mesh_lib
 
 
 def default_generator(generator: torch.Generator | None) -> torch.Generator:
@@ -72,11 +82,26 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(w.contiguous())
         self.bias = nn.Parameter(torch.zeros(n_out))
         self.dtype = dtype
+        self.tp_role = None  # "column" | "row" on a 'model' axis (parallel/tp.py)
+        self.tp_group = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+        """``sharded``: a column-parallel layer returns this rank's block of
+        its outputs, a row-parallel one takes this rank's block of its
+        inputs; by default both take and return whole tensors."""
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if self.tp_role == "row":
+            if not sharded:
+                x = mesh_lib.split(x, self.tp_group, -1)
+            y = mesh_lib.reduce_from(torch.matmul(x.to(dt), self.weight.to(dt).T), self.tp_group)
+            return y + self.bias.to(dt)
+        if self.tp_role == "column":
+            x = mesh_lib.copy_to(x, self.tp_group)
         y = torch.matmul(x.to(dt), self.weight.to(dt).T)
-        return y + self.bias.to(dt)
+        y = y + self.bias.to(dt)
+        if self.tp_role == "column" and not sharded:
+            y = mesh_lib.gather(y, self.tp_group, -1)
+        return y
 
 
 def same_padding(size: int, kernel: int, stride: int, dilation: int):
@@ -170,12 +195,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
         self.eps, self.momentum = eps, momentum
+        self.data_group = None  # the 'data' ranks whose batches make the global one
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return normalize(x.float(), self.running_mean, self.running_var, self.weight, self.bias, self.eps)
-        x, mean, var = fast_stats(x, (0,))
-        mean, var = mean[0], var[0]
+        if self.data_group is None:
+            x, mean, var = fast_stats(x, (0,))
+            mean, var = mean[0], var[0]
+        else:
+            x = x.float()
+            n = x.shape[0] * mesh_lib.group_size(self.data_group)
+            sums = mesh_lib.all_reduce(torch.stack([x.sum(0), (x * x).sum(0)]), self.data_group) / n
+            mean = sums[0]
+            var = torch.clamp(sums[1] - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

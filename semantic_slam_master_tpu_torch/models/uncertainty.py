@@ -26,8 +26,8 @@ class UncertaintyEstimator(nn.Module):
     def forward(self, backbone_features: torch.Tensor, descriptors: torch.Tensor) -> torch.Tensor:
         """(..., C_feat), (..., C_desc) -> confidence (..., 1) in [0, 1]."""
         x = torch.cat([backbone_features, descriptors], dim=-1)
-        x = torch.relu(self.fc1(x))
-        x = torch.relu(self.fc2(x))
+        x = torch.relu(self.fc1(x, sharded=True))
+        x = torch.relu(self.fc2(x, sharded=True))
         return torch.sigmoid(self.fc3(x))
 
 

@@ -5,9 +5,10 @@ dataclass tree whose YAML keys are the reference's, ``load_config`` /
 
 The YAML is read with PyYAML's ``safe_load``, as the JAX loader reads it
 (PyYAML is a dependency of the project, and the card's machine has it).
-Unknown keys are ignored with a warning, as the JAX loader does. One
-process trains on one device: ``mesh_data`` / ``mesh_model`` above 1
-raise.
+Unknown keys are ignored with a warning, as the JAX loader does.
+``training.mesh_data`` / ``mesh_model`` shape the trainer's
+``('data', 'model')`` mesh (``parallel/mesh.py``); a run whose process
+group does not hold that many ranks raises in ``train.trainer.fit``.
 """
 
 from __future__ import annotations
@@ -150,9 +151,6 @@ def load_config(path=None, overrides: dict | None = None) -> Config:
         _update_dataclass(cfg, yaml.safe_load(Path(path).read_text()) or {})
     if overrides:
         _update_dataclass(cfg, overrides)
-    t = cfg.training
-    if (t.mesh_data or 1) > 1 or t.mesh_model > 1:
-        raise ValueError(f"mesh_data={t.mesh_data}, mesh_model={t.mesh_model}: the port trains on one device")
     return cfg
 
 

@@ -9,7 +9,11 @@
 step for step as optax 0.2 computes them:
 
 - clipping scales every gradient by c / ||g|| only when ||g|| >= c (one
-  global norm over all trainable leaves; no epsilon);
+  global norm over all trainable leaves; no epsilon). On a mesh whose
+  'model' axis shards some leaves (``parallel/tp.py``), the norm is of the
+  full tensors: each rank's blocks of the sharded leaves and the
+  replicated leaves once (on model coordinate 0), summed over the axis;
+  the update itself is elementwise, so it runs on the blocks;
 - Adam's moments ``mu = 0.1 g + 0.9 mu``, ``nu = 0.001 g^2 + 0.999 nu``,
   bias-corrected with ``count + 1``, ``eps`` outside the square root
   (``eps_root`` 0);
@@ -33,6 +37,8 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as mesh_lib
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 f32 = np.float32
@@ -82,12 +88,16 @@ class AdamWState:
 class AdamW:
     """``[clip_by_global_norm(grad_clip)] + adamw(schedule, weight_decay)``
     over dicts of tensors keyed by parameter name; ``order`` is the leaf
-    order of the global norm's sum (the flax tree's)."""
+    order of the global norm's sum (the flax tree's); ``mesh`` and
+    ``sharded`` (the names of the leaves its 'model' axis shards) make the
+    norm that of the full tensors."""
 
     schedule: Callable[[int], np.float32]
     weight_decay: float
     grad_clip: float | None = None
     order: list = field(default_factory=list)
+    mesh: mesh_lib.Mesh | None = None
+    sharded: frozenset = frozenset()
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
         return AdamWState(mu={k: torch.zeros_like(p) for k, p in params.items()},
@@ -95,10 +105,15 @@ class AdamW:
 
     def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         keys = self.order or list(grads)
+        group = self.mesh.model_group if self.mesh is not None else None
         total = 0
         for k in keys:
-            total = total + torch.sum(grads[k] * grads[k])
-        return torch.sqrt(total)
+            if group is None or k in self.sharded or self.mesh.model_rank == 0:
+                total = total + torch.sum(grads[k] * grads[k])
+        if group is None:
+            return torch.sqrt(total)
+        dev = next(iter(grads.values())).device
+        return torch.sqrt(mesh_lib.all_reduce(torch.as_tensor(total, dtype=torch.float32, device=dev), group))
 
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState, params: Dict[str, torch.Tensor]):
         """(new params, new state, global gradient norm): new tensors; the

@@ -1,7 +1,7 @@
 """Training loop for the learned frontend (port of ``train/trainer.py``).
 
-One process, one device. A train step runs the frame pair through the
-model as the JAX ``_forward_pair`` does -- two separate backbone calls in
+A train step runs the frame pair through the model as the JAX
+``_forward_pair`` does -- two separate backbone calls in
 BatchNorm training mode (the second starts from the running statistics
 the first moved; the step keeps the second's), fixed-K keypoints,
 sub-patch offsets, descriptors at the offsets under stop-gradient,
@@ -18,11 +18,26 @@ backbone with ``training.train_backbone``; a frozen backbone gets no
 gradient, no share of the clip norm and no decay, but its BatchNorm
 statistics still move.
 
+Over a ``('data', 'model')`` mesh (``training.mesh_data`` /
+``mesh_model``, ``parallel/mesh.py``) the step is the JAX step of the
+global batch. Each rank runs its slice of the batch through the per-image
+half of the forward (the backbone's BatchNorm takes its statistics over
+the global batch) and its model shards (``parallel/tp.py``); every tensor
+the loss reads is then gathered over the 'data' axis, and each rank
+computes the whole loss -- the cross-image hard negatives, the descriptor
+variance and decorrelation statistics and the per-image means couple the
+batch, so a loss per rank with averaged gradients would be another step.
+The gradients are summed over 'data', the replicated ones broadcast over
+'model', the clip norm is that of the full tensors, and one finite check
+decides for every rank.
+
 Checkpoints are ``.npz`` files keyed by the flax tree's paths
 (``convert.py``): ``params``, ``batch_stats``, the optimiser's moments
 and counts, ``step`` and ``rng`` (JAX's key words, carried unchanged),
 with ``<name>.meta.json`` beside them (``epoch``, ``val_loss``,
 ``params_only``), as the JAX trainer writes beside its orbax directory.
+They always hold the full arrays, written by the first rank, so a
+checkpoint of one mesh shape restores on any other.
 
 On the card, ``torch.gather``'s backward (bilinear feature sampling,
 ``take_along_axis``) adds with atomics, so two runs agree within rounding,
@@ -49,6 +64,7 @@ from ..models.backbone import patch_to_pixel
 from ..models.frontend import LearnedFrontend
 from ..models.selector import select_keypoints
 from ..ops import matching
+from ..parallel import mesh as mesh_lib, tp
 from .config import Config, build_model
 from .optim import AdamW, AdamWState, warmup_cosine_decay_schedule
 
@@ -82,9 +98,11 @@ def flax_order(names) -> list:
     return sorted(names, key=lambda n: tuple(convert.flax_key(n, (0, 0)).split("/")))
 
 
-def build_optimizer(cfg: Config, steps_per_epoch: int, order=()) -> AdamW:
+def build_optimizer(cfg: Config, steps_per_epoch: int, order=(), mesh: mesh_lib.Mesh | None = None,
+                    sharded: frozenset = frozenset()) -> AdamW:
     """``clip_by_global_norm(grad_clip)`` then AdamW on a warm-up + cosine
-    schedule, with the JAX trainer's clamps for short runs."""
+    schedule, with the JAX trainer's clamps for short runs; ``mesh`` and
+    ``sharded`` as ``AdamW`` takes them."""
     t = cfg.training
     total_steps = max(t.epochs * steps_per_epoch, 2)
     warmup = min(t.warmup_epochs * steps_per_epoch, total_steps - 1)
@@ -92,7 +110,7 @@ def build_optimizer(cfg: Config, steps_per_epoch: int, order=()) -> AdamW:
         init_value=0.0 if warmup > 0 else t.lr, peak_value=t.lr, warmup_steps=max(warmup, 1),
         decay_steps=total_steps, end_value=t.lr_min,
     )
-    return AdamW(schedule, t.weight_decay, t.grad_clip, list(order))
+    return AdamW(schedule, t.weight_decay, t.grad_clip, list(order), mesh, sharded)
 
 
 def create_train_state(cfg: Config, steps_per_epoch: int, device="cpu", dtype=torch.bfloat16,
@@ -114,9 +132,20 @@ def create_train_state(cfg: Config, steps_per_epoch: int, device="cpu", dtype=to
     )
 
 
-def _forward_pair(model: LearnedFrontend, rgb1, rgb2, cfg: Config, extras=None):
+def _forward_pair(model: LearnedFrontend, rgb1, rgb2, cfg: Config, extras=None,
+                  mesh: mesh_lib.Mesh | None = None):
     """(LossBundle, metrics) of a frame pair; ``extras`` (depth1, K, K2,
-    rel_pose) turns on GT-warp pairs and the localisation term."""
+    rel_pose) turns on GT-warp pairs and the localisation term. On a mesh
+    the inputs are this rank's slice, and the loss is of the global batch."""
+    terms = _pair_terms(model, rgb1, rgb2, cfg, extras)
+    if mesh is not None:
+        terms = {k: mesh_lib.gather(v, mesh.data_group) for k, v in terms.items()}
+    return _pair_loss(terms, cfg)
+
+
+def _pair_terms(model: LearnedFrontend, rgb1, rgb2, cfg: Config, extras=None) -> Dict[str, torch.Tensor]:
+    """The per-image half of the forward: every tensor the loss reads, each
+    with the batch axis first."""
     feats1, sal1 = model.features_and_saliency(rgb1, train=True)
     feats2, sal2 = model.features_and_saliency(rgb2, train=True)
     num_kp = cfg.model.num_keypoints
@@ -132,6 +161,7 @@ def _forward_pair(model: LearnedFrontend, rgb1, rgb2, cfg: Config, extras=None):
     m = matching.match_cosine(desc1, desc2, kp1.valid, kp2.valid, ratio=None)
     ps = model.patch_size
     lc = cfg.loss
+    neg_ok = None
     if lc.gt_supervision and extras is not None:
         gt = losses.gt_match_pairs(
             patch_to_pixel(xy1.detach(), ps), patch_to_pixel(xy2.detach(), ps), kp1.valid, kp2.valid,
@@ -143,39 +173,50 @@ def _forward_pair(model: LearnedFrontend, rgb1, rgb2, cfg: Config, extras=None):
         loc_idx2, loc_valid = pairs[..., 1], pair_valid
     else:
         pairs, pair_valid = matching.matches_to_pairs(m, num_kp)
-        neg_ok = None
         loc_idx2, loc_valid = m.idx2, m.valid & kp1.valid
 
+    terms = {"desc1": desc1, "desc2": desc2, "pairs": pairs, "pair_valid": pair_valid, "sal1": sal1, "sal2": sal2,
+             "rgb1": rgb1, "conf1": conf1, "score": m.score, "conf_valid": m.valid & kp1.valid, "count": m.count()}
+    if neg_ok is not None:
+        terms.update(neg_ok=neg_ok, valid2=kp2.valid)
+    if lc.weights.get("localization", 0.0) and cfg.model.subpatch_refine and extras is not None:
+        uv2 = patch_to_pixel(xy2, ps)
+        terms.update(uv1=patch_to_pixel(xy1, ps), loc_valid=loc_valid, depth1=extras["depth1"], K=extras["K"],
+                     uv2_matched=torch.gather(uv2, 1, loc_idx2[..., None].expand(*loc_idx2.shape, 2)),
+                     rel_pose=extras["rel_pose"])
+        if extras.get("K2") is not None:
+            terms["K2"] = extras["K2"]
+    return terms
+
+
+def _pair_loss(t: Dict[str, torch.Tensor], cfg: Config):
+    """(LossBundle, metrics) of the terms of :func:`_pair_terms`."""
+    lc = cfg.loss
     bundle = losses.total_loss(
-        desc1, desc2, pairs, pair_valid, sal1, sal2, rgb1, weights=lc.weights, temperature=lc.desc_temperature,
-        target_variance=lc.target_variance, target_mean=lc.sparsity_target, sparsity_penalty=lc.sparsity_penalty,
-        neg_ok=neg_ok, valid2=kp2.valid if neg_ok is not None else None, cross_image=lc.cross_image_negatives,
-        hard_margin=lc.hard_margin,
+        t["desc1"], t["desc2"], t["pairs"], t["pair_valid"], t["sal1"], t["sal2"], t["rgb1"], weights=lc.weights,
+        temperature=lc.desc_temperature, target_variance=lc.target_variance, target_mean=lc.sparsity_target,
+        sparsity_penalty=lc.sparsity_penalty, neg_ok=t.get("neg_ok"), valid2=t.get("valid2"),
+        cross_image=lc.cross_image_negatives, hard_margin=lc.hard_margin,
     )
 
-    match_err = losses.clip(1.0 - m.score, 0.0, 2.0)
-    conf_valid = m.valid & kp1.valid
-    cal = uncertainty.calibration_loss(conf1[..., None], match_err, conf_valid)
-    ee = uncertainty.expected_error_loss(conf1[..., None], match_err, conf_valid)
+    match_err = losses.clip(1.0 - t["score"], 0.0, 2.0)
+    cal = uncertainty.calibration_loss(t["conf1"][..., None], match_err, t["conf_valid"])
+    ee = uncertainty.expected_error_loss(t["conf1"][..., None], match_err, t["conf_valid"])
     w = lc.weights
     extra = w.get("calibration", 0.3) * cal + w.get("expected_error", 0.02) * ee
     comps = {**bundle.components, "calibration": cal, "expected_error": ee}
 
-    loc_w = w.get("localization", 0.0)
-    if loc_w and cfg.model.subpatch_refine and extras is not None:
-        uv1 = patch_to_pixel(xy1, ps)
-        uv2 = patch_to_pixel(xy2, ps)
-        uv2_matched = torch.gather(uv2, 1, loc_idx2[..., None].expand(*loc_idx2.shape, 2))
-        loc = losses.localization_loss(uv1, uv2_matched, loc_valid, extras["depth1"], extras["K"],
-                                       extras["rel_pose"], max_residual=12.0, K2=extras.get("K2"))
+    if "uv1" in t:
+        loc = losses.localization_loss(t["uv1"], t["uv2_matched"], t["loc_valid"], t["depth1"], t["K"],
+                                       t["rel_pose"], max_residual=12.0, K2=t.get("K2"))
         loc = losses.guard(loc, 0.0)
-        extra = extra + loc_w * loc
+        extra = extra + w["localization"] * loc
         comps["localization"] = loc
 
     bundle = losses.LossBundle(total=bundle.total + losses.guard(extra, 0.0), components=comps)
-    s1, d1 = sal1.detach(), desc1.detach()
+    s1, d1 = t["sal1"].detach(), t["desc1"].detach()
     metrics = {
-        "num_matches": torch.mean(m.count().float()),
+        "num_matches": torch.mean(t["count"].float()),
         "mean_saliency": torch.mean(s1),
         "max_saliency": torch.amax(s1),
         "saliency_variance": torch.var(s1, correction=0),
@@ -188,21 +229,26 @@ def _extras(batch):
     return batch if "rel_pose" in batch else None
 
 
-def make_train_step(model: LearnedFrontend, cfg: Config, tx: AdamW):
+def make_train_step(model: LearnedFrontend, cfg: Config, tx: AdamW, mesh: mesh_lib.Mesh | None = None):
     """``train_step(state, batch) -> (state, outputs)`` on device tensors;
-    the state's tensors are updated in place."""
+    the state's tensors are updated in place. On ``mesh`` the batch is this
+    rank's slice and the model is on the mesh (``tp.shard_module``)."""
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         saved = {k: b.clone() for k, b in state.batch_stats.items()}
         names = list(state.trainable)
         with torch.enable_grad():
-            bundle, metrics = _forward_pair(model, batch["rgb1"], batch["rgb2"], cfg, _extras(batch))
+            bundle, metrics = _forward_pair(model, batch["rgb1"], batch["rgb2"], cfg, _extras(batch), mesh)
             loss = bundle.total
             grads = torch.autograd.grad(loss, [state.trainable[k] for k in names], allow_unused=True)
         grads = {k: torch.zeros_like(state.trainable[k]) if g is None else g for k, g in zip(names, grads)}
+        if mesh is not None:
+            grads = mesh_lib.reduce_grads(mesh, grads, [k for k in names if k not in tx.sharded])
         finite = torch.isfinite(loss.detach())
         for g in grads.values():
             finite = finite & torch.isfinite(g).all()
+        if mesh is not None:
+            finite = torch.full_like(finite, mesh_lib.all_true(mesh, finite))
         new_params, new_opt, _ = tx.update(grads, state.opt_state, state.trainable)
         with torch.no_grad():
             if bool(finite):
@@ -220,7 +266,7 @@ def make_train_step(model: LearnedFrontend, cfg: Config, tx: AdamW):
     return train_step
 
 
-def make_eval_step(model: LearnedFrontend, cfg: Config):
+def make_eval_step(model: LearnedFrontend, cfg: Config, mesh: mesh_lib.Mesh | None = None):
     """``eval_step(state, batch) -> outputs``: the train step's forward
     (BatchNorm in training mode, as the JAX eval step runs it), the moved
     statistics put back."""
@@ -228,7 +274,7 @@ def make_eval_step(model: LearnedFrontend, cfg: Config):
     def eval_step(state: TrainState, batch) -> Dict:
         saved = {k: b.clone() for k, b in state.batch_stats.items()}
         with torch.no_grad():
-            bundle, metrics = _forward_pair(model, batch["rgb1"], batch["rgb2"], cfg, _extras(batch))
+            bundle, metrics = _forward_pair(model, batch["rgb1"], batch["rgb2"], cfg, _extras(batch), mesh)
             for k, b in state.batch_stats.items():
                 b.copy_(saved[k])
         return {"loss": bundle.total, **bundle.components, **metrics}
@@ -246,14 +292,20 @@ def meta_path(path) -> Path:
     return Path(path).with_suffix(".meta.json")
 
 
-def checkpoint_tree(model: LearnedFrontend, state: TrainState, params_only: bool = False) -> dict:
-    """The flat arrays of a checkpoint (``convert.train_state_tree``'s keys)."""
-    flat = convert.frontend_tree(model.state_dict())
+def checkpoint_tree(model: LearnedFrontend, state: TrainState, params_only: bool = False,
+                    mesh: mesh_lib.Mesh | None = None) -> dict:
+    """The flat arrays of a checkpoint (``convert.train_state_tree``'s keys),
+    full arrays where ``mesh`` shards them (every rank of it takes part)."""
+
+    def full(tree):
+        return tp.unshard_tree(dict(tree), mesh) if mesh is not None and mesh.model_group is not None else tree
+
+    flat = convert.frontend_tree(full(model.state_dict()))
     flat["step"] = np.asarray(state.step, np.int32)
     if params_only:
         return flat
     for moment in ("mu", "nu"):
-        for name, t in getattr(state.opt_state, moment).items():
+        for name, t in full(getattr(state.opt_state, moment)).items():
             key = convert.flax_key(name, tuple(t.shape))
             a = t.detach().float().cpu().numpy()
             flat[f"opt_state/{moment}/" + key.split("/", 1)[1]] = np.array(
@@ -265,14 +317,18 @@ def checkpoint_tree(model: LearnedFrontend, state: TrainState, params_only: bool
 
 
 def save_checkpoint(path, model: LearnedFrontend, state: TrainState, metadata: Dict | None = None,
-                    params_only: bool = False) -> Path:
+                    params_only: bool = False, mesh: mesh_lib.Mesh | None = None) -> Path:
     """Write ``path`` (``.npz``) and its ``.meta.json``; ``params_only``
-    drops the optimiser state and the PRNG key."""
+    drops the optimiser state and the PRNG key. On ``mesh`` every rank
+    calls it and the first writes the full arrays."""
     path = Path(path)
     if path.suffix != ".npz":
         path = path.with_name(path.name + ".npz")
+    flat = checkpoint_tree(model, state, params_only, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    np.savez(path, **checkpoint_tree(model, state, params_only))
+    np.savez(path, **flat)
     meta = dict(metadata or {})
     meta["params_only"] = params_only
     meta_path(path).write_text(json.dumps(meta))
@@ -317,6 +373,19 @@ def restore_checkpoint(path, model: LearnedFrontend, state: TrainState) -> Tuple
 # ---------------------------------------------------------------------------
 
 
+def to_mesh(model: LearnedFrontend, state: TrainState, cfg: Config, steps_per_epoch: int,
+            mesh: mesh_lib.Mesh) -> AdamW:
+    """Put a full model and state on ``mesh`` in place (every rank calls it):
+    the first rank's weights, statistics and moments broadcast, then this
+    rank's shards kept. Returns the mesh's optimiser."""
+    mesh_lib.replicate(mesh, [*model.state_dict().values(), *state.opt_state.mu.values(),
+                              *state.opt_state.nu.values()])
+    tp.shard_module(model, mesh)
+    state.opt_state.mu = tp.shard_tree(state.opt_state.mu, mesh)
+    state.opt_state.nu = tp.shard_tree(state.opt_state.nu, mesh)
+    return build_optimizer(cfg, steps_per_epoch, flax_order(state.trainable), mesh, tp.sharded_names(state.trainable))
+
+
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True) for k, v in batch.items()}
 
@@ -345,9 +414,17 @@ def fit(
     ``resume_from`` restores the whole state from a full checkpoint and
     picks up at its epoch + 1. ``steps_per_epoch`` sizes the schedule only.
     ``step_times`` (a list) collects each train step's seconds on the
-    device's clock. Returns (model, state, history)."""
+    device's clock. Returns (model, state, history).
+
+    The mesh is ``training.mesh_data`` x ``mesh_model`` over the process
+    group (``parallel.mesh.make_mesh``: a mesh of more than one rank
+    without a group of that size raises). Every rank reads the same
+    batches and keeps its slice; the first rank's state is broadcast, then
+    sharded; only the first rank logs and writes checkpoints. The returned
+    model and state hold this rank's shards."""
     device = resolve_device(device)
     t = cfg.training
+    mesh = mesh_lib.make_mesh(t.mesh_data, t.mesh_model)
     model, state = create_train_state(cfg, steps_per_epoch, device=device, dtype=dtype)
     best_val = float("inf")
     start_epoch = 1
@@ -362,18 +439,19 @@ def fit(
         fresh = state.opt_state, state.step, state.rng
         state, _ = restore_checkpoint(init_from, model, state)
         state.opt_state, state.step, state.rng = fresh
-    tx = build_optimizer(cfg, steps_per_epoch, flax_order(state.trainable))
-    train_step = make_train_step(model, cfg, tx)
-    eval_step = make_eval_step(model, cfg)
+    tx = to_mesh(model, state, cfg, steps_per_epoch, mesh)
+    train_step = make_train_step(model, cfg, tx, mesh)
+    eval_step = make_eval_step(model, cfg, mesh)
     history = {"train": [], "val": []}
     save_dir = Path(t.save_dir)
     cuda = device.type == "cuda"
+    first = mesh.rank == 0
 
     for epoch in range(start_epoch, t.epochs + 1):
         agg: Dict[str, float] = {}
         n = 0
         for batch in train_batches(epoch):
-            batch = to_device(batch, device)
+            batch = to_device(mesh_lib.shard_batch(mesh, batch), device)
             if cuda and step_times is not None:
                 ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 ev[0].record()
@@ -388,21 +466,23 @@ def fit(
         train_metrics = {k: v / max(n, 1) for k, v in agg.items()}
         train_metrics["epoch"] = epoch
         history["train"].append(train_metrics)
-        log_fn({"split": "train", **train_metrics})
+        if first:
+            log_fn({"split": "train", **train_metrics})
 
         if val_batches is not None and epoch % t.val_interval == 0:
             vagg: Dict[str, float] = {}
             vn = 0
             for batch in val_batches():
-                for k, v in _floats(eval_step(state, to_device(batch, device))).items():
+                for k, v in _floats(eval_step(state, to_device(mesh_lib.shard_batch(mesh, batch), device))).items():
                     vagg[k] = vagg.get(k, 0.0) + v
                 vn += 1
             val_metrics = {k: v / max(vn, 1) for k, v in vagg.items()}
             val_metrics["epoch"] = epoch
             history["val"].append(val_metrics)
-            log_fn({"split": "val", **val_metrics})
+            if first:
+                log_fn({"split": "val", **val_metrics})
             if val_metrics.get("loss", math.inf) < best_val:
                 best_val = val_metrics["loss"]
                 save_checkpoint(save_dir / "best_model.npz", model, state,
-                                metadata={"epoch": epoch, "val_loss": best_val})
+                                metadata={"epoch": epoch, "val_loss": best_val}, mesh=mesh)
     return model, state, history

@@ -33,7 +33,8 @@ def _forbidden(name: str) -> bool:
 PORT_FILES = sorted((REPO / "semantic_slam_master_tpu_torch").rglob("*.py"))
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_smoke.py", REPO / "profile_port.py", REPO / "profile_kernels.py"], ids=lambda p: str(p.relative_to(REPO)))
+@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_smoke.py", REPO / "profile_port.py", REPO / "profile_kernels.py",
+                                  REPO / "profile_determinism.py"], ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     bad = [n for n in _imported_roots(path) if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"

@@ -23,6 +23,7 @@ Tolerances, and why:
 """
 
 import json
+import os
 from pathlib import Path
 
 import jax
@@ -59,6 +60,7 @@ ARTIFACT = REPO / "artifacts" / "frontend_tiny" / "best_model"
 SMALL = {"model": {"input_size": 64, "num_keypoints": 12},
          "dataset": {"synthetic_frames": 5, "synthetic_worlds": 1}, "training": {"batch_size": 2}}
 BF16_GAP = 0.1
+MESH_CLI_GAP = 1e-4
 
 
 def _write_config(path, overrides):
@@ -67,10 +69,29 @@ def _write_config(path, overrides):
 
 
 def test_config_round_trip_and_mesh_refusal(tmp_path):
+    """``load_config`` keeps ``mesh_data`` / ``mesh_model`` as the JAX loader
+    does, and ``fit`` refuses a mesh the process group cannot hold: more
+    than one rank with no group, or a group of another size (here one
+    gloo rank in this process). It never trains on one device instead."""
+    import datetime
+
+    import torch.distributed as dist
+
     cfg = _write_config(tmp_path / "c.yaml", SMALL)
     assert jconfig.to_dict(jconfig.load_config(cfg)) == tconfig.to_dict(tconfig.load_config(cfg))
-    with pytest.raises(ValueError, match="one device"):
-        tconfig.load_config(TINY, {"training": {"mesh_data": 4}})
+    mesh = {"training": {"mesh_data": 2, "mesh_model": 2}}
+    tcfg = tconfig.load_config(TINY, mesh)
+    assert (tcfg.training.mesh_data, tcfg.training.mesh_model) == (2, 2)
+    assert tconfig.to_dict(tcfg) == jconfig.to_dict(jconfig.load_config(TINY, mesh))
+    with pytest.raises(ValueError, match="no process group"):
+        ttrainer.fit(tcfg, lambda epoch: iter(()), device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        with pytest.raises(ValueError, match="mesh 2x2 != 1 ranks"):
+            ttrainer.fit(tcfg, lambda epoch: iter(()), device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("split_seed", [0, 1])
@@ -238,6 +259,52 @@ def test_cli_trains_and_run_slam_loads_the_checkpoint(tmp_path):
     import argparse
     model = run_slam_cli.load_learned_frontend(argparse.Namespace(train_config=str(TINY), checkpoint=str(ckpt)), "cpu")
     assert sum(p.numel() for p in model.parameters()) > 0
+
+
+def test_cli_under_torchrun_on_a_mesh(tmp_path, capsys):
+    """``train`` under ``torchrun`` as two gloo ranks (``mesh_data: 2``,
+    ``--device cpu``): one epoch of two steps with validation; only the
+    first rank logs (one ``done`` line, one JSONL record per split) and
+    writes the checkpoint, whose arrays are the full ones. The epoch's train
+    figures (both steps before any parameter moves: the warm-up's first
+    learning rate is 0) equal a one-process run's of the same YAML within
+    MESH_CLI_GAP in |mesh - one| / (|one| + 0.01). The validation after the
+    second step is only held finite: at bf16 each rank rounds its weight
+    gradients before their sum, Adam's first real step turns that into
+    sign flips where a gradient is rounding noise, and the figures then
+    part by up to 0.18 here; the multi-step equality, validation included,
+    is held at f32 in tests/test_torch_parallel_dist.py."""
+    import socket
+    import subprocess
+    import sys
+
+    over = {"model": SMALL["model"], "dataset": {"synthetic_frames": 9, "synthetic_worlds": 1},
+            "training": {"batch_size": 4, "epochs": 1, "val_interval": 1}}
+    one = _write_config(tmp_path / "one.yaml", {**over, "training": {**over["training"], "save_dir": str(tmp_path / "o")}})
+    mesh = _write_config(tmp_path / "mesh.yaml", {**over, "training": {
+        **over["training"], "mesh_data": 2, "save_dir": str(tmp_path / "m")}})
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+         "--master-port", str(port), "-m", "semantic_slam_master_tpu_torch", "train", "--config", str(mesh),
+         "--device", "cpu", "--jsonl-log", str(tmp_path / "m.jsonl")],
+        cwd=REPO, capture_output=True, text=True, timeout=180, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("done; best checkpoint") == 1
+    assert tcli.main(["--config", str(one), "--device", "cpu", "--jsonl-log", str(tmp_path / "o.jsonl")]) == 0
+    m, o = _jsonl(tmp_path / "m.jsonl"), _jsonl(tmp_path / "o.jsonl")
+    assert [r["split"] for r in m] == [r["split"] for r in o] == ["train", "val"]
+    gap = max(abs(m[0][k] - v) / (abs(v) + 0.01) for k, v in o[0].items() if k not in ("ts", "split"))
+    with capsys.disabled():
+        print(f"\n[train under torchrun (2 ranks) against one process, bf16 train figures: largest gap {gap:.3g}]")
+    assert gap <= MESH_CLI_GAP and m[0]["skipped"] == 0.0
+    assert all(np.isfinite(v) for k, v in m[1].items() if k not in ("ts", "split"))
+    with np.load(tmp_path / "m" / "best_model.npz") as zm, np.load(tmp_path / "o" / "best_model.npz") as zo:
+        assert set(zm.files) == set(zo.files)
+        for k in zo.files:
+            assert zm[k].shape == zo[k].shape, k
 
 
 def test_cli_refuses_a_missing_card(tmp_path):
