@@ -55,12 +55,14 @@ device synchronised at the end of each):
    other places on the card; a near-tie in saliency rank can move a
    keypoint).
 10. learned path -- ``run-slam --synthetic --frontend learned
-   --train-config configs/train_vits_synthetic_long.yaml --semantics
-   model`` (ViT-S/16 at full width with sub-patch refinement, seeded
-   weights, 8-frame chunks), 60 frames, then ``evaluate``: finite poses, a
-   successful evaluation, gather_patches launched at least once per
-   chunk; fps and the time split (segmenter, backbone, heads, SLAM loop)
-   printed. ATE is not bounded: the weights are seeded, not trained.
+   --train-config configs/train_vits_synthetic.yaml --checkpoint
+   weights/frontend_vits.npz --semantics model --segmenter-checkpoint
+   weights/segmenter.npz`` (the trained ViT-S/16 at full width with
+   sub-patch refinement and the trained segmenter, 8-frame chunks), 60
+   frames, then ``evaluate``: finite poses, ATE below VITS_ATE_BOUND_M,
+   gather_patches launched at least once per chunk; fps and the time
+   split (segmenter, backbone, heads, SLAM loop) of the trained pair
+   printed.
 11. dynamic path -- ``run-slam --synthetic --dynamic --seed 1`` (ORB
    frontend, so the weight map and score weight run through both ORB
    kernels), 60 frames, with ``--semantics gt`` (ATE below
@@ -68,8 +70,11 @@ device synchronised at the end of each):
    without the weights this seed tracks the walking person, as in the
    paired CPU runs of both packages).
 
-12. trained weights -- weights/frontend_tiny.npz and weights/segmenter.npz
-   (export_weights.py) are read before the build; their sizes are printed.
+12. trained weights -- weights/frontend_tiny.npz, weights/segmenter.npz
+   and weights/frontend_vits.npz (export_weights.py) are read before the
+   build; their sizes are printed, and the ViT-S/16 file's form: every
+   array float32 as restored (no leaf stored rounded). A missing or
+   unreadable file fails the run.
 13. trained tiny learned path -- ``run-slam --synthetic --frontend learned
    --train-config configs/train_tiny_synthetic.yaml --checkpoint
    weights/frontend_tiny.npz``, 60 frames, then ``evaluate``: ATE below
@@ -106,12 +111,16 @@ device synchronised at the end of each):
    both ORB kernels launched exactly 4x per 16-frame chunk.
 20. acceptance suite -- ``run-tests --frontend orb-pyramid`` on that
    directory at ``--difficulty normal``, and ``run-tests --frontend
-   learned --config configs/train_tiny_synthetic.yaml --checkpoint
-   weights/frontend_tiny.npz --synthetic``: repeatability, inlier ratio,
-   precision and tracking success within SUITE_MARGIN of the JAX
-   package's CPU figures (SUITE_*_JAX); the ORB kernels launched on the
-   first, gather_patches on the second; the performance test's stage
-   times and fps printed beside the card's name and power limit.
+   learned --synthetic`` with the trained tiny frontend (``--config
+   configs/train_tiny_synthetic.yaml --checkpoint
+   weights/frontend_tiny.npz``) and the trained ViT-S/16 (``--config
+   configs/train_vits_synthetic.yaml --checkpoint
+   weights/frontend_vits.npz``): repeatability, inlier ratio, precision
+   and tracking success within SUITE_MARGIN of the JAX package's CPU
+   figures (SUITE_*_JAX; the ViT-S checkpoint's own TPU figures are
+   printed beside them as context); the ORB kernels launched on the
+   first, gather_patches on the learned ones; the performance test's
+   stage times and fps printed beside the card's name and power limit.
 21. resumed training -- ``train --resume weights/frontend_tiny_state.npz
    --epochs 67`` (the trained tiny frontend's epoch-65 state, exported
    from its orbax checkpoint) on a YAML derived from
@@ -178,6 +187,14 @@ device synchronised at the end of each):
    BatchNorm statistics; bounds at the constants); every rank's
    first-step seconds, peak memory and gather_patches launches (2 a
    step) printed.
+32. stage-2 warm start -- ``train --init-from weights/frontend_vits.npz``
+   (the trained ViT-S/16) on the YAML phase 23 derives from
+   configs/train_vits_synthetic_long.yaml, one step: every figure finite
+   (``hard`` included), no step skipped, gather_patches twice in the
+   step; then the first step's forward on VITS_CPU_PAIRS of its pairs
+   from the loaded weights, bf16, within RESUME_GAP_BOUND of the JAX
+   package's forward on the same pairs and weights (VITS_WARM_JAX);
+   step time and peak memory printed.
 
 Every path that runs a kernel resets the launch counters just before it
 and reads them just after; the kernels line sums them (``launches``)
@@ -303,6 +320,28 @@ SUITE_TUM_JAX = {"repeatability_1": 0.915320, "repeatability_5": 0.854339, "inli
                  "precision": 0.692627, "tracking_1": 1.0, "tracking_5": 1.0}
 SUITE_LEARNED_JAX = {"repeatability_1": 0.732786, "repeatability_5": 0.788204, "inlier_ratio": 0.793379,
                      "precision": 0.790295, "tracking_1": 1.0, "tracking_5": 1.0}
+# The trained ViT-S/16: artifacts/frontend_vits (epoch 40 of
+# configs/train_vits_synthetic.yaml, params only), exported whole as
+# float32 by export_weights.py (193 arrays, 94,615,436 bytes).
+VITS_CONFIG = "configs/train_vits_synthetic.yaml"
+VITS_WEIGHTS = "weights/frontend_vits.npz"
+VITS_ARRAYS = 193
+# run-slam --synthetic --frontend learned --train-config VITS_CONFIG
+# --checkpoint artifacts/frontend_vits/best_model --semantics model
+# --segmenter-checkpoint artifacts/segmenter/best_model (the JAX package's
+# CLI on the CPU, its orbax checkpoints): VITS_ATE_JAX_M over seeds 0-3;
+# the bound is twice the worst.
+VITS_ATE_JAX_M = (0.011430, 0.010403, 0.010502, 0.010712)
+VITS_ATE_BOUND_M = 2 * max(VITS_ATE_JAX_M)
+# run-tests --frontend learned --config VITS_CONFIG --checkpoint
+# artifacts/frontend_vits/best_model --synthetic --difficulty normal, the
+# JAX package on the CPU; the card is held to it within SUITE_MARGIN.
+SUITE_VITS_JAX = {"repeatability_1": 0.720721, "repeatability_5": 0.802054, "inlier_ratio": 0.783742,
+                  "precision": 0.768918, "tracking_1": 1.0, "tracking_5": 1.0}
+# artifacts/frontend_vits/test_results.json: the same suite's figures on
+# a TPU when the checkpoint was trained. Printed as context, not a bound.
+SUITE_VITS_TPU = {"repeatability_1": 0.719760, "repeatability_5": 0.802265, "inlier_ratio": 0.785761,
+                  "precision": 0.771739, "tracking_1": 1.0, "tracking_5": 1.0}
 # Training (phases 21-24). The YAMLs are derived at run time from the
 # committed configs (derive_config; ``python3 chip_smoke.py --write-config
 # KIND OUT`` writes the same file without a card).
@@ -343,6 +382,21 @@ VITS_FRAMES = 9
 VITS_EPOCHS = 3
 VITS_WEIGHT_ABS_SUM = 877944.3491542276
 VITS_CPU_PAIRS = 2  # the card-against-CPU forward: 2 pairs, so cross-image negatives run
+# Phase 32: the stage-2 warm start (train --init-from VITS_WEIGHTS on the
+# phase-23 YAML). The JAX package's first-step forward, bf16, train mode,
+# on the first VITS_CPU_PAIRS pairs of the first batch from the restored
+# artifacts/frontend_vits (``trainer._forward_pair``, jitted, on the CPU),
+# as tests/test_torch_vits_weights.py computes and checks them; there the
+# port's CPU forward from weights/frontend_vits.npz sits within 0.0083 of
+# them (at ``desc``; 0.0125 at ``calibration`` with all the host's
+# threads), well inside RESUME_GAP_BOUND, which the card is held to.
+VITS_WARM_JAX = {
+    "loss": 5.003952503204346, "activation": 0.0003540434699971229, "calibration": 0.019287066534161568,
+    "desc": 0.5385493040084839, "edge": -0.9709627628326416, "expected_error": 0.0905679240822792,
+    "hard": 0.06533731520175934, "localization": 0.8328458070755005, "peakiness": 0.033970415592193604,
+    "repeat": 0.04104791209101677, "sparsity": 0.0, "variance": 0.0, "descriptor_variance": 0.0078122373670339584,
+    "max_saliency": 0.9750898480415344, "mean_saliency": 0.33118394017219543, "num_matches": 312.0,
+    "saliency_variance": 0.03569880872964859}
 # Phase 24: train-segmenter --steps 300 --height 120 --width 160
 # --model-width 32, JAX on the CPU over seeds 0-3: final loss 0.1011,
 # 0.0975, 0.1090, 0.0628 and accuracy 0.964, 0.969, 0.965, 0.979; then
@@ -784,9 +838,9 @@ def check_learned(torch, synthetic, render_all, tracking, config_mod, seg_mod, s
 def learned_split(torch, synthetic, render_all, tracking, run_slam_cli, select_keypoints) -> dict:
     """Device ms per 8-frame chunk of each stage of the learned path
     (segmenter, backbone, saliency head + selection, sub-patch refinement,
-    descriptors), warm, median of 5, with the path's seeded models."""
+    descriptors), warm, median of 5, with the path's trained models."""
     args = argparse.Namespace(
-        seed=SEED, train_config=LEARNED_CONFIG, checkpoint=None, segmenter_checkpoint=None)
+        seed=SEED, train_config=VITS_CONFIG, checkpoint=VITS_WEIGHTS, segmenter_checkpoint=SEGMENTER_WEIGHTS)
     model = run_slam_cli.load_learned_frontend(args, torch.device("cuda"))
     seg = run_slam_cli.load_segmenter(args, torch.device("cuda"))
     seq = synthetic.make_sequence(num_frames=run_slam_cli.LEARNED_CHUNK, scale=1.0)
@@ -1111,6 +1165,12 @@ def derive_config(kind: str, save_dir: str, out: str) -> str:
     return out
 
 
+def forward_figures(bundle, metrics) -> dict:
+    """A ``_forward_pair`` result as floats: the loss, its components and the metrics."""
+    return {"loss": float(bundle.total), **{k: float(v) for k, v in bundle.components.items()},
+            **{k: float(v) for k, v in metrics.items()}}
+
+
 def figure_gap(got: dict, want: dict) -> tuple:
     """Largest |got - want| / (|want| + 0.01) over ``want``'s figures, and its key."""
     return max((abs(got[k] - v) / (abs(v) + 0.01), k) for k, v in want.items())
@@ -1170,8 +1230,7 @@ def train_vits(torch, train_cli, trainer, config_mod, tmp, reset_counts, read_co
         b = trainer.to_device(half, device)
         with torch.no_grad():
             bundle, metrics = trainer._forward_pair(model, b["rgb1"], b["rgb2"], cfg, b)
-        figs[device] = {"loss": float(bundle.total), **{k: float(v) for k, v in bundle.components.items()},
-                        **{k: float(v) for k, v in metrics.items()}}
+        figs[device] = forward_figures(bundle, metrics)
         secs[device] = time.perf_counter() - t0
     gap, key = figure_gap(figs["cuda"], figs["cpu"])
     log(f"  first step's forward on {VITS_CPU_PAIRS} pairs, card against the host CPU (same seeded weights, "
@@ -1325,6 +1384,68 @@ def training_phases(torch, run_slam_cli, evaluate_cli, config_mod, record, reset
         if not (ate == ate and ate < SEG_TRAIN_ATE_BOUND_M):
             raise AssertionError(f"card-trained segmenter: ATE {ate} m not below {SEG_TRAIN_ATE_BOUND_M} m")
 
+
+def warm_start_phase(torch, record, reset_counts, read_counts, card) -> None:
+    """Phase 32 (the module docstring): the stage-2 recipe's warm start
+    from the trained ViT-S/16 through the ``train`` CLI, then the first
+    step's forward on VITS_CPU_PAIRS pairs from the loaded weights against
+    the JAX package's, and one warm step timed."""
+    from semantic_slam_master_tpu_torch.cli import train_cli
+    from semantic_slam_master_tpu_torch.train import config as config_mod
+    from semantic_slam_master_tpu_torch.train import trainer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cfg_path = derive_config("vits", os.path.join(tmp, "save"), os.path.join(tmp, "warm.yaml"))
+        log_path = os.path.join(tmp, "warm.jsonl")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        train_cli.main(["--config", cfg_path, "--init-from", VITS_WEIGHTS, "--epochs", "1", "--jsonl-log", log_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        train_phase_launches(counts, 1, "ViT-S/16 warm start")
+        record("train_warm_vits", counts, {"gather_patches": 2})
+        rows = read_jsonl(log_path)
+        cfg = config_mod.load_config(cfg_path)
+    if [r["epoch"] for r in rows] != [1]:
+        raise AssertionError(f"warm start logged {rows}, expected one train epoch")
+    r = rows[0]
+    bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
+    log(f"  step 1 from {VITS_WEIGHTS}: figures={r}")
+    if r["skipped"] != 0.0 or bad or "hard" not in r:
+        raise AssertionError(f"warm start: skipped={r['skipped']} non-finite={bad} hard present={'hard' in r}")
+
+    model, state = trainer.create_train_state(cfg, 16, device="cuda")
+    trainer.restore_checkpoint(VITS_WEIGHTS, model, state)
+    batch = next(iter(train_cli._synthetic_pair_batches(cfg, split_seed=0)(1)))
+    b = trainer.to_device({k: v[:VITS_CPU_PAIRS] for k, v in batch.items()}, "cuda")
+    with torch.no_grad():
+        bundle, metrics = trainer._forward_pair(model, b["rgb1"], b["rgb2"], cfg, b)
+    figs = forward_figures(bundle, metrics)
+    gap, key = figure_gap(figs, VITS_WARM_JAX)
+    log(f"  first step's forward on {VITS_CPU_PAIRS} pairs from {VITS_WEIGHTS}, card against the JAX package "
+        f"(bf16 both): largest gap {gap:.4g} at {key} (bound {RESUME_GAP_BOUND:.4g}); card {figs}")
+    if not gap <= RESUME_GAP_BOUND:
+        raise AssertionError(f"warm-start forward: {key} card {figs[key]} vs JAX {VITS_WARM_JAX[key]}")
+    # One warm train step of the whole batch from those weights (the
+    # CLI's first step also built and warmed the kernels).
+    tx = trainer.build_optimizer(cfg, 16, trainer.flax_order(state.trainable))
+    step = trainer.make_train_step(model, cfg, tx)
+    b = trainer.to_device(batch, "cuda")
+    step_ms = []
+    for _ in range(2):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        state, _ = step(state, b)
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    log(f"  train --init-from wall {wall:.2f} s (host clock: render of the train and val sets, model build, "
+        f"load and the step); peak torch.cuda.max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); "
+        f"steps from the trained weights {[round(x, 2) for x in step_ms]} ms (CUDA events, 8 pairs) ({card})")
 
 
 def coincide_share(torch, xy_a, xy_b, valid) -> float:
@@ -1785,10 +1906,16 @@ def main() -> int:
             f"{'present' if importlib.util.find_spec('yaml') else 'absent'}")
 
     with phase("trained weights (export_weights.py)"):
-        for path in (TINY_WEIGHTS, SEGMENTER_WEIGHTS):
+        for path in (TINY_WEIGHTS, SEGMENTER_WEIGHTS, VITS_WEIGHTS):
             with np.load(path) as z:
                 n, nbytes = len(z.files), sum(z[k].nbytes for k in z.files)
-            log(f"  {path}: {os.path.getsize(path)} bytes on disk, {n} arrays, {nbytes} bytes of float32")
+                dtypes = sorted({str(z[k].dtype) for k in z.files})
+            log(f"  {path}: {os.path.getsize(path)} bytes on disk, {n} arrays, {nbytes} bytes of {dtypes}")
+            if dtypes != ["float32"] or (path == VITS_WEIGHTS and n != VITS_ARRAYS):
+                raise AssertionError(f"{path}: {n} arrays of {dtypes}, expected float32 only "
+                                     f"({VITS_ARRAYS} arrays for {VITS_WEIGHTS})")
+        log(f"  {VITS_WEIGHTS} form: every array float32 as restored from artifacts/frontend_vits "
+            "(no leaf stored rounded to bf16)")
 
     with phase("build"):
         secs = build.build(force=True)
@@ -1845,22 +1972,26 @@ def main() -> int:
         check_learned(torch, synthetic, run_slam_cli.render_all, tracking, config_mod, seg_mod,
                       select_keypoints)
 
-    with phase("learned path: run-slam --frontend learned --semantics model + evaluate"), \
+    with phase("learned path: run-slam --frontend learned --checkpoint weights/frontend_vits.npz --semantics "
+               "model --segmenter-checkpoint weights/segmenter.npz + evaluate"), \
             tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         reset_counts()
         run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
             "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--frontend", "learned",
-            "--train-config", LEARNED_CONFIG, "--semantics", "model"])
+            "--train-config", VITS_CONFIG, "--checkpoint", VITS_WEIGHTS, "--semantics", "model",
+            "--segmenter-checkpoint", SEGMENTER_WEIGHTS])
         counts = read_counts()
+        ate = res["ate"]["rmse"]
         chunks = -(-MAIN_FRAMES // run_slam_cli.LEARNED_CHUNK)
-        log(f"  frames={MAIN_FRAMES} ViT-S/16 (seeded weights) run_slam_wall_s={run['wall_s']:.2f} "
-            f"fps={run['fps']} segmenter_s={run['segmenter_s']} frontend_s={run['frontend_s']} "
-            f"slam_loop_s={run['backend_s']} model_load_s={run['model_load_s']} "
+        log(f"  frames={MAIN_FRAMES} ViT-S/16 ({VITS_WEIGHTS}) + segmenter ({SEGMENTER_WEIGHTS}) "
+            f"run_slam_wall_s={run['wall_s']:.2f} fps={run['fps']} segmenter_s={run['segmenter_s']} "
+            f"frontend_s={run['frontend_s']} slam_loop_s={run['backend_s']} model_load_s={run['model_load_s']} "
             f"render_s={run['render_s']} keyframes={run['keyframes']} "
-            f"mean_inliers={run['mean_inliers']:.1f} ate_rmse_m={res['ate']['rmse']:.5f} (not bounded) "
-            f"launches={counts} learned_chunks={chunks}")
-        if not run["finite_poses"]:
-            raise AssertionError("the learned path gave non-finite poses")
+            f"mean_inliers={run['mean_inliers']:.1f} ate_rmse_m={ate:.6f} (bound < {VITS_ATE_BOUND_M:.6f}; "
+            f"JAX seeds 0-3 {VITS_ATE_JAX_M}) launches={counts} learned_chunks={chunks} ({card})")
+        if not (run["finite_poses"] and ate == ate and ate < VITS_ATE_BOUND_M):
+            raise AssertionError(f"trained ViT-S/16 learned path: ATE {ate} m is not finite and below "
+                                 f"{VITS_ATE_BOUND_M} m")
         record("learned_vits", counts, {"gather_patches": chunks})
         split = learned_split(torch, synthetic, run_slam_cli.render_all, tracking, run_slam_cli,
                               select_keypoints)
@@ -2020,6 +2151,15 @@ def main() -> int:
                                            TINY_WEIGHTS, "--synthetic", "--difficulty", "normal"], "learned",
                       SUITE_LEARNED_JAX, card)
             record("suite_learned", read_counts(), {"gather_patches": 1})
+            reset_counts()
+            r = run_suite(run_tests_cli, tmp, ["--frontend", "learned", "--config", VITS_CONFIG, "--checkpoint",
+                                               VITS_WEIGHTS, "--synthetic", "--difficulty", "normal"],
+                          "learned-vits", SUITE_VITS_JAX, card)
+            record("suite_learned_vits", read_counts(), {"gather_patches": 1})
+            log("  the ViT-S/16 checkpoint's own figures on a TPU (artifacts/frontend_vits/test_results.json, "
+                "context, not the bound): " + " ".join(f"{k}={v:.6f}" for k, v in SUITE_VITS_TPU.items())
+                + "; the card minus them: " + " ".join(f"{k}={suite_figures(r)[k] - v:+.6f}"
+                                                     for k, v in SUITE_VITS_TPU.items()))
 
     training_phases(torch, run_slam_cli, evaluate_cli, config_mod, record, reset_counts, read_counts, card)
     cli_tool_phases(torch, synthetic, tracking, record, reset_counts, read_counts, card, path_frames)
@@ -2032,6 +2172,9 @@ def main() -> int:
                f"{' and '.join(f'{d}x{m}' for d, m in MESH_SHAPES)} on two gloo ranks of the one card, against "
                "the step without a mesh"):
         mesh_training_phase(torch, record, reset_counts, read_counts, card)
+    with phase(f"32. stage-2 warm start: train --init-from {VITS_WEIGHTS} (the trained ViT-S/16, 1 step of 8 "
+               "pairs at 448 px), its first forward against the JAX package's"):
+        warm_start_phase(torch, record, reset_counts, read_counts, card)
 
     kernels = []
     for name, src, replaces, r, timed_as in (

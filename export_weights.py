@@ -8,13 +8,21 @@ Restores, through the JAX package on the CPU:
 
 - ``artifacts/segmenter/best_model`` with ``seg_trainer.load_checkpoint``;
 - ``artifacts/frontend_tiny/best_model`` (``configs/train_tiny_synthetic.yaml``)
-  with ``trainer.create_train_state`` and ``trainer.restore_checkpoint``;
+  and ``artifacts/frontend_vits/best_model`` (the full-width ViT-S/16 of
+  ``configs/train_vits_synthetic.yaml``, a params-only checkpoint) with
+  ``trainer.create_train_state`` and ``trainer.restore_checkpoint``;
 
 and writes their ``params`` and ``batch_stats`` (no optimizer state, PRNG
 key or step), float32 as restored, through the port's ``convert.save_npz``
-to ``<out-dir>/segmenter.npz`` and ``<out-dir>/frontend_tiny.npz``. The
-port loads them with ``run-slam --segmenter-checkpoint`` and
-``--checkpoint``. It also writes the tiny frontend's whole training state
+to ``<out-dir>/segmenter.npz``, ``<out-dir>/frontend_tiny.npz`` and
+``<out-dir>/frontend_vits.npz``. The port loads them with ``run-slam
+--segmenter-checkpoint`` and ``--checkpoint``, ``run-tests --checkpoint``
+and ``train --init-from``. ``frontend_vits.npz`` (193 arrays, 94.6 MB) is
+plain float32, equal to the restore bit for bit, and not the half-size
+form with the backbone's kernels rounded to bfloat16: the repository
+with it is ~124 MB without ``artifacts/``, small enough to copy whole to
+the card's machine, and float32 keeps f32 inference and a warm start from
+the checkpoint exact. It also writes the tiny frontend's whole training state
 (``convert.train_state_tree``: params, batch_stats, Adam's moments, both
 optimiser counts, step and the PRNG key) to
 ``<out-dir>/frontend_tiny_state.npz``, with the checkpoint's meta (epoch,
@@ -46,6 +54,8 @@ REPO = Path(__file__).resolve().parent
 SEGMENTER = REPO / "artifacts" / "segmenter" / "best_model"
 FRONTEND_TINY = REPO / "artifacts" / "frontend_tiny" / "best_model"
 TINY_CONFIG = REPO / "configs" / "train_tiny_synthetic.yaml"
+FRONTEND_VITS = REPO / "artifacts" / "frontend_vits" / "best_model"
+VITS_CONFIG = REPO / "configs" / "train_vits_synthetic.yaml"
 
 
 def segmenter_variables() -> dict:
@@ -53,26 +63,27 @@ def segmenter_variables() -> dict:
     return {"params": jax.device_get(seg_trainer.load_checkpoint(str(SEGMENTER)))}
 
 
-def frontend_tiny_state():
-    """The trained tiny frontend's restored ``TrainState`` and its meta."""
-    cfg = jconfig.load_config(str(TINY_CONFIG))
+def frontend_state(config: Path, checkpoint: Path):
+    """A trained frontend's restored ``TrainState`` and its meta."""
+    cfg = jconfig.load_config(str(config))
     _, state = trainer.create_train_state(cfg, steps_per_epoch=1)
-    state, meta = trainer.restore_checkpoint(str(FRONTEND_TINY), state)
+    state, meta = trainer.restore_checkpoint(str(checkpoint), state)
     return jax.device_get(state), meta
 
 
-def frontend_tiny_variables(state=None) -> dict:
-    """The trained tiny frontend's ``{"params", "batch_stats"}``."""
-    state = frontend_tiny_state()[0] if state is None else state
+def frontend_variables(state) -> dict:
+    """A restored frontend state's ``{"params", "batch_stats"}``."""
     return {"params": trainer.merge_params(state.trainable, state.frozen), "batch_stats": state.batch_stats}
 
 
 def export(out_dir: Path) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     written = {}
-    state, meta = frontend_tiny_state()
+    state, meta = frontend_state(TINY_CONFIG, FRONTEND_TINY)
+    vits_state, _ = frontend_state(VITS_CONFIG, FRONTEND_VITS)
     for name, variables in (("segmenter", segmenter_variables()),
-                            ("frontend_tiny", frontend_tiny_variables(state))):
+                            ("frontend_tiny", frontend_variables(state)),
+                            ("frontend_vits", frontend_variables(vits_state))):
         flat = convert.flatten_tree(variables)
         bad = {k: a.dtype for k, a in flat.items() if a.dtype != np.float32}
         if bad:
