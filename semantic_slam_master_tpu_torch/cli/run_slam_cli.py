@@ -22,7 +22,15 @@ frames with a closing pass between chunks (``online.run_slam_online``).
 It writes
 ``<out>/<name>_trajectory.txt`` (plus ``<name>_groundtruth.txt`` for a
 synthetic run; ``evaluate --data-root`` reads a TUM sequence's own), and
-the run's stage times and counts as ``<name>_run.json``.
+the run's stage times and counts as ``<name>_run.json``, whose ``trace``
+is the program's recorder over the run (``utils/profiling.py``): for
+each span, its calls and its host (and, for the learned frontend's
+device spans, device) ms a frame; and each counter's total. The root
+calls are ``segmenter.weights``, ``frontend.features`` and ``slam.run``
+(``slam.steps`` and ``slam.bootstrap`` with ``--loop-closure online``);
+``stage.pad`` and ``stage.copy`` time the frames' padding and their
+copies to the device, ``h2d_bytes`` and ``h2d_pinned_bytes`` count the
+copies.
 
 ``--checkpoint`` and ``--segmenter-checkpoint`` take ``.npz`` files of
 flax variables keyed by their flattened path (``convert.py``). Without
@@ -53,6 +61,7 @@ from ..data.tum import TUMSequence
 from ..models import segmenter as seg_mod
 from ..slam import loop_closing, online, system, tracking
 from ..train import config as config_mod
+from ..utils import profiling
 
 FRONTEND_CHUNK = 16
 LEARNED_CHUNK = 8
@@ -70,7 +79,7 @@ REFERENCE_SEQUENCES = [
 
 def _pad_frames(arrays, chunk):
     """Pad each (F, ...) numpy array or tensor to a multiple of ``chunk``
-    frames by repeating its last frame."""
+    frames by repeating its last frame (the span ``stage.pad``)."""
     pad = (-len(arrays[0])) % chunk
 
     def padded(a):
@@ -80,16 +89,27 @@ def _pad_frames(arrays, chunk):
             return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
         return np.concatenate([a, np.repeat(a[-1:], pad, 0)])
 
-    return [padded(a) for a in arrays]
+    with profiling.span("stage.pad"):
+        return [padded(a) for a in arrays]
 
 
 def _chunk(a, i, chunk, device):
-    """Frames [i, i + chunk) of a numpy array or tensor, on ``device``."""
+    """Frames [i, i + chunk) of a numpy array or tensor, on ``device``. A
+    copy from the host to another device is the span ``stage.copy`` (a
+    copy from pageable memory holds the host) and adds its bytes to
+    ``h2d_bytes``, and to ``h2d_pinned_bytes`` from pinned memory."""
     if a is None:
         return None
     if isinstance(a, np.ndarray):
         a = torch.from_numpy(a)
-    return a[i : i + chunk].to(device)
+    part = a[i : i + chunk]
+    if part.device.type != "cpu" or torch.device(device).type == "cpu":
+        return part.to(device)
+    with profiling.span("stage.copy"):
+        profiling.count("h2d_bytes", part.nbytes)
+        if part.is_pinned():
+            profiling.count("h2d_pinned_bytes", part.nbytes)
+        return part.to(device)
 
 
 def _cat_features(outs, n) -> tracking.FrameFeatures:
@@ -99,29 +119,33 @@ def _cat_features(outs, n) -> tracking.FrameFeatures:
 def features_for_frames(gray_np, depth_np, num_keypoints, device, chunk=FRONTEND_CHUNK, weight_map=None):
     """Batched ORB frontend over all frames in chunks of ``chunk`` frames
     (the last chunk padded by repeating its final frame), kept on
-    ``device``. ``weight_map`` is an optional (F, Hm, Wm) semantic weight."""
+    ``device``. ``weight_map`` is an optional (F, Hm, Wm) semantic weight.
+    The root call ``frontend.features``."""
     n = len(gray_np)
-    gray_np, depth_np, weight_map = _pad_frames([gray_np, depth_np, weight_map], chunk)
-    outs = []
-    for i in range(0, len(gray_np), chunk):
-        outs.append(tracking.extract_features(
-            _chunk(gray_np, i, chunk, device), _chunk(depth_np, i, chunk, device),
-            num_keypoints=num_keypoints, weight_map=_chunk(weight_map, i, chunk, device),
-        ))
-    return _cat_features(outs, n)
+    with profiling.span("frontend.features", frames=n):
+        gray_np, depth_np, weight_map = _pad_frames([gray_np, depth_np, weight_map], chunk)
+        outs = []
+        for i in range(0, len(gray_np), chunk):
+            outs.append(tracking.extract_features(
+                _chunk(gray_np, i, chunk, device), _chunk(depth_np, i, chunk, device),
+                num_keypoints=num_keypoints, weight_map=_chunk(weight_map, i, chunk, device),
+            ))
+        return _cat_features(outs, n)
 
 
 def learned_features_for_frames(model, rgb_np, depth_np, device, chunk=LEARNED_CHUNK, weight_map=None):
-    """Batched learned frontend over all frames in chunks of ``chunk``."""
+    """Batched learned frontend over all frames in chunks of ``chunk``.
+    The root call ``frontend.features``."""
     n = len(rgb_np)
-    rgb_np, depth_np, weight_map = _pad_frames([rgb_np, depth_np, weight_map], chunk)
-    outs = []
-    for i in range(0, len(rgb_np), chunk):
-        outs.append(tracking.extract_learned_features(
-            model, _chunk(rgb_np, i, chunk, device), _chunk(depth_np, i, chunk, device),
-            weight_map=_chunk(weight_map, i, chunk, device),
-        ))
-    return _cat_features(outs, n)
+    with profiling.span("frontend.features", frames=n):
+        rgb_np, depth_np, weight_map = _pad_frames([rgb_np, depth_np, weight_map], chunk)
+        outs = []
+        for i in range(0, len(rgb_np), chunk):
+            outs.append(tracking.extract_learned_features(
+                model, _chunk(rgb_np, i, chunk, device), _chunk(depth_np, i, chunk, device),
+                weight_map=_chunk(weight_map, i, chunk, device),
+            ))
+        return _cat_features(outs, n)
 
 
 def num_frames(seq) -> int:
@@ -185,7 +209,7 @@ def load_learned_frontend(args, device):
 def semantic_weight_maps(rgb_np, labels_np, semantics, device, model=None):
     """(F, Hm, Wm) f32 residual weights on ``device``, or None: the GT
     labels' class weights (``gt``), or the 1/4-resolution labels of the
-    segmenter ``model`` (``model``)."""
+    segmenter ``model`` (``model``; the root call ``segmenter.weights``)."""
     if semantics == "off":
         return None
     if semantics == "gt":
@@ -194,11 +218,11 @@ def semantic_weight_maps(rgb_np, labels_np, semantics, device, model=None):
             return None
         return seg_mod.class_weights_map(torch.from_numpy(labels_np).to(device))
     labels = []
-    with torch.no_grad():
+    with profiling.span("segmenter.weights", frames=len(rgb_np)), torch.no_grad():
         for i in range(0, len(rgb_np), SEGMENTER_CHUNK):
             logits = model(_chunk(rgb_np, i, SEGMENTER_CHUNK, device), full_res=False)
             labels.append(seg_mod.predict_classes(logits))
-    return seg_mod.class_weights_map(torch.cat(labels, dim=0))
+        return seg_mod.class_weights_map(torch.cat(labels, dim=0))
 
 
 def load_frames(seq, want_rgb: bool):
@@ -216,6 +240,7 @@ def load_frames(seq, want_rgb: bool):
 
 
 def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
+    first_call = profiling.mark()
     t0 = time.perf_counter()
     want_rgb = args.semantics == "model" or args.frontend == "learned"
     rgb_np, gray_np, depth_np, labels_np, decoder = load_frames(seq, want_rgb)
@@ -288,6 +313,7 @@ def run_sequence(seq, out_path: Path, args, device: torch.device) -> dict:
         "mean_inliers": float(out.num_inliers[1:].float().mean()) if n > 1 else 0.0,
         "finite_poses": bool(np.isfinite(poses).all()),
         "trajectory": str(out_path),
+        "trace": profiling.per_frame(profiling.calls(since=first_call), n),
     }
 
 

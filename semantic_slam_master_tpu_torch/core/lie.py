@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 _EPS = 1e-8
 
 
@@ -139,7 +141,8 @@ def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    with profiling.sync("lie.make_pose"):  # a blocking copy from the host
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
     bottom = bottom.expand(batch + (4,))[..., None, :]
     return torch.cat([top, bottom], dim=-2)
 

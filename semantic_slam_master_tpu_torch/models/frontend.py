@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.sampling import bilinear_sample, gather_patches, nearest_sample
+from ..utils import profiling
 from .backbone import ViTBackbone, patch_to_pixel
 from .layers import Conv, Dense, default_generator, gelu
 from .refiner import DescriptorRefiner
@@ -112,9 +113,12 @@ class LearnedFrontend(nn.Module):
         """Backbone grid + saliency map (NaN saliency -> 0.5); ``train`` is
         the backbone BatchNorm's training mode."""
         feats = self.backbone(images, train=train)
+        return feats, self.saliency_of(feats)
+
+    def saliency_of(self, feats: torch.Tensor) -> torch.Tensor:
+        """The selector's saliency map of a backbone grid (NaN -> 0.5)."""
         saliency = self.selector(feats)
-        saliency = torch.where(torch.isfinite(saliency), saliency, torch.full_like(saliency, 0.5))
-        return feats, saliency
+        return torch.where(torch.isfinite(saliency), saliency, torch.full_like(saliency, 0.5))
 
     def refine_at(self, feats, saliency, images, keypoints_patch):
         """Patch-centre coords + OffsetHead offsets from the standardised
@@ -147,21 +151,26 @@ class LearnedFrontend(nn.Module):
         return sampled, desc, conf
 
     def forward(self, images: torch.Tensor) -> FrontendOutput:
-        """(B, H, W, 3) normalised RGB -> FrontendOutput."""
-        feats, saliency = self.features_and_saliency(images)
-        kp = select_keypoints(saliency, num_keypoints=self.num_keypoints, nms_radius=self.nms_radius)
-        xy = self.refine_at(feats, saliency, images, kp.xy) if self.subpatch_refine else kp.xy
-        _, desc, conf = self.describe_at(feats, xy)
-        return FrontendOutput(
-            keypoints_px=patch_to_pixel(xy, self.patch_size),
-            keypoints_patch=xy,
-            descriptors=desc,
-            scores=kp.score,
-            confidence=conf,
-            valid=kp.valid,
-            saliency=saliency,
-            features=feats,
-        )
+        """(B, H, W, 3) normalised RGB -> FrontendOutput. Recorded as the
+        device spans ``frontend.backbone`` (the ViT) and ``frontend.heads``
+        (selector, top-k, sub-patch refinement, descriptors, confidence)."""
+        with profiling.span("frontend.backbone", device=images.device):
+            feats = self.backbone(images)
+        with profiling.span("frontend.heads", device=images.device):
+            saliency = self.saliency_of(feats)
+            kp = select_keypoints(saliency, num_keypoints=self.num_keypoints, nms_radius=self.nms_radius)
+            xy = self.refine_at(feats, saliency, images, kp.xy) if self.subpatch_refine else kp.xy
+            _, desc, conf = self.describe_at(feats, xy)
+            return FrontendOutput(
+                keypoints_px=patch_to_pixel(xy, self.patch_size),
+                keypoints_patch=xy,
+                descriptors=desc,
+                scores=kp.score,
+                confidence=conf,
+                valid=kp.valid,
+                saliency=saliency,
+                features=feats,
+            )
 
 
 def tiny_frontend(**overrides) -> LearnedFrontend:

@@ -19,6 +19,7 @@ import torch
 from ..core import lie
 from ..core.camera import PinholeCamera, project
 from ..core.fixed import inv3x3
+from ..utils import profiling
 from .pnp import huber_weights
 
 
@@ -87,7 +88,8 @@ def bundle_adjust(
         return _robust_cost(r, w)
 
     init_cost = cost_of(poses, points)
-    lam = torch.tensor(init_lambda, dtype=dtype, device=dev)
+    with profiling.sync("ba.lambda"):  # a blocking copy from the host
+        lam = torch.tensor(init_lambda, dtype=dtype, device=dev)
     for _ in range(num_iters):
         r, w, p_cam, depth_scale = _residuals_and_weights(
             poses, points, problem, cam, huber_delta, depth_weight

@@ -14,6 +14,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import PinholeCamera, project
+from ..utils import profiling
 
 _mm = lie.mm_small
 _mv = lie.mv_small
@@ -201,32 +202,42 @@ def ransac_pose(
     Hypotheses are 3-point Kabsch fits of ``points`` onto ``points_dst``,
     scored by semantically weighted inlier support on ``observations``;
     the best is refined with Gauss-Newton and kept only if support does
-    not drop.
+    not drop. Recorded as the spans ``slam.ransac`` (draws, fits, scoring,
+    the best hypothesis's mask) and ``slam.refine`` (the polish, rescoring,
+    refine-or-keep, rmse); indexing with the 0-dim ``best`` reads it on the
+    host, a ``sync`` each time.
     """
-    w_sem = valid.to(points.dtype) if weights is None else valid.to(points.dtype) * weights
-    probs = w_sem + 1e-6
-    probs = probs / probs.sum()
-    idx = sample_indices(probs, u)  # (H, 3)
+    with profiling.span("slam.ransac"):
+        w_sem = valid.to(points.dtype) if weights is None else valid.to(points.dtype) * weights
+        probs = w_sem + 1e-6
+        probs = probs / probs.sum()
+        idx = sample_indices(probs, u)  # (H, 3)
 
-    Ts = kabsch(points[idx], points_dst[idx])  # (H, 4, 4)
-    inls, masks = count_inliers(Ts, points, observations, cam, valid, inlier_threshold)
-    supports = torch.sum(masks * w_sem, dim=-1)
-    best = torch.argmax(supports)
-    T_best = Ts[best]
+        Ts = kabsch(points[idx], points_dst[idx])  # (H, 4, 4)
+        inls, masks = count_inliers(Ts, points, observations, cam, valid, inlier_threshold)
+        supports = torch.sum(masks * w_sem, dim=-1)
+        best = torch.argmax(supports)
+        with profiling.sync("ransac.best_pose"):
+            T_best = Ts[best]
 
-    _, mask = count_inliers(T_best, points, observations, cam, valid, inlier_threshold)
-    w = mask.to(points.dtype)
-    if weights is not None:
-        w = w * weights
-    T_ref = refine_pose(T_best, points, observations, cam, weights=w, num_iters=refine_iters)
-    inl_ref, mask_ref = count_inliers(T_ref, points, observations, cam, valid, inlier_threshold)
-    sup_ref = torch.sum(mask_ref * w_sem)
-    use_ref = sup_ref >= supports[best]
-    T_final = torch.where(use_ref, T_ref, T_best)
-    inl_final = torch.where(use_ref, inl_ref, inls[best])
-    mask_final = torch.where(use_ref, mask_ref, mask)
+        _, mask = count_inliers(T_best, points, observations, cam, valid, inlier_threshold)
+        w = mask.to(points.dtype)
+        if weights is not None:
+            w = w * weights
+    with profiling.span("slam.refine"):
+        T_ref = refine_pose(T_best, points, observations, cam, weights=w, num_iters=refine_iters)
+        inl_ref, mask_ref = count_inliers(T_ref, points, observations, cam, valid, inlier_threshold)
+        sup_ref = torch.sum(mask_ref * w_sem)
+        with profiling.sync("refine.best_support"):
+            best_support = supports[best]
+        use_ref = sup_ref >= best_support
+        T_final = torch.where(use_ref, T_ref, T_best)
+        with profiling.sync("refine.best_inliers"):
+            best_inliers = inls[best]
+        inl_final = torch.where(use_ref, inl_ref, best_inliers)
+        mask_final = torch.where(use_ref, mask_ref, mask)
 
-    r, _ = reprojection_residuals(T_final, points, observations, cam)
-    err2 = torch.sum(r * r, dim=-1)
-    rmse = torch.sqrt(torch.sum(err2 * mask_final) / torch.clamp(torch.sum(mask_final), min=1))
+        r, _ = reprojection_residuals(T_final, points, observations, cam)
+        err2 = torch.sum(r * r, dim=-1)
+        rmse = torch.sqrt(torch.sum(err2 * mask_final) / torch.clamp(torch.sum(mask_final), min=1))
     return PnPResult(pose=T_final, num_inliers=inl_final, inlier_mask=mask_final, rmse=rmse)

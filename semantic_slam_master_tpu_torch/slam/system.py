@@ -10,6 +10,16 @@ tracking support drops, a keyframe: unmatched keypoints become new
 landmarks, the observation row is written and the window is bundle
 adjusted. The JAX ``lax.scan`` over frames is a Python loop here and its
 ``lax.cond`` a real branch.
+
+Recorded (``utils/profiling.py``): ``run_slam`` is the root call
+``slam.run``, ``bootstrap_map`` and ``run_slam_steps`` are ``slam.bootstrap``
+and ``slam.steps`` (roots themselves when called alone, as live tracking
+calls them); inside, the spans ``slam.match``, ``slam.ransac`` and
+``slam.refine`` (``pnp.ransac_pose``), ``slam.map`` and ``slam.ba``, a
+``sync`` at each read of a device value on the host and each blocking copy
+from it (``lie.make_pose``'s constant row among them), and the counter
+``keyframes`` (tracked frames that became keyframes; the bootstrap frame
+is not counted).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 from ..core import lie
 from ..core.camera import PinholeCamera, backproject
 from ..ops import matching
+from ..utils import profiling
 from . import ba, pnp
 from .tracking import FrameFeatures
 
@@ -82,7 +93,8 @@ def _scatter(dst: torch.Tensor, slots: torch.Tensor, src: torch.Tensor) -> torch
     winner.scatter_reduce_(0, slots, order, reduce="amax")
     keep = (slots < M) & (winner[slots] == order)
     out = dst.clone()
-    out[slots[keep]] = src[keep].to(dst.dtype)
+    with profiling.sync("map.scatter", 2):  # two boolean-mask reads
+        out[slots[keep]] = src[keep].to(dst.dtype)
     return out
 
 
@@ -137,7 +149,8 @@ def _insert_landmarks(
     """Ring-buffer insert of the keypoints in ``new_mask`` as landmarks."""
     M = state.positions.shape[0]
     slots = _new_slots(state, new_mask)
-    num_new = int(new_mask.sum())
+    with profiling.sync("map.num_new"):
+        num_new = int(new_mask.sum())
     pts_world = lie.transform_points(T_wc, backproject(feats.xy, feats.depth, cam))
     ones = torch.ones_like(weights)
     reused = _scatter(torch.zeros_like(state.lm_valid), slots, new_mask)
@@ -199,13 +212,15 @@ def _write_keyframe(
         buf[k] = row
         return buf
 
+    with profiling.sync("map.kf_used"):  # a Python scalar is copied from the host
+        kf_used = put(state.kf_used, True)
     return state._replace(
         kf_poses=put(state.kf_poses, T_cw),
         kf_obs=put(state.kf_obs, obs_row),
         kf_obs_depth=put(state.kf_obs_depth, depth_row),
         kf_valid=put(state.kf_valid, valid_row),
         kf_conf=put(state.kf_conf, conf_row),
-        kf_used=put(state.kf_used, True),
+        kf_used=kf_used,
         kf_ptr=(k + 1) % state.kf_used.shape[0],
     )
 
@@ -227,13 +242,15 @@ def _run_local_ba(state: MapState, cam: PinholeCamera, cfg: SlamConfig) -> MapSt
 def bootstrap_map(first: FrameFeatures, cam: PinholeCamera, cfg: SlamConfig) -> MapState:
     """First frame defines the world: its valid keypoints become landmarks
     and keyframe 0 (at identity)."""
-    dev = first.xy.device
-    state = init_map(cfg, dev, desc_dim=first.desc.shape[-1], desc_dtype=first.desc.dtype)
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    insert_mask = first.valid & (first.sem_weight >= cfg.min_landmark_weight)
-    state = _insert_landmarks(state, eye, first, insert_mask, first.sem_weight, cam)
-    lm_idx0 = (torch.cumsum(insert_mask.to(torch.int64), 0) - 1) % cfg.num_landmarks
-    return _write_keyframe(state, eye, first, lm_idx0, insert_mask, first.sem_weight)
+    with profiling.span("slam.bootstrap", frames=1):
+        dev = first.xy.device
+        state = init_map(cfg, dev, desc_dim=first.desc.shape[-1], desc_dtype=first.desc.dtype)
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        insert_mask = first.valid & (first.sem_weight >= cfg.min_landmark_weight)
+        with profiling.span("slam.map"):
+            state = _insert_landmarks(state, eye, first, insert_mask, first.sem_weight, cam)
+            lm_idx0 = (torch.cumsum(insert_mask.to(torch.int64), 0) - 1) % cfg.num_landmarks
+            return _write_keyframe(state, eye, first, lm_idx0, insert_mask, first.sem_weight)
 
 
 def frame(features: FrameFeatures, i: int) -> FrameFeatures:
@@ -252,7 +269,8 @@ def slam_step(
 ):
     """One tracked frame. ``u`` (num_hypotheses, 3) RANSAC uniforms.
     Returns (state, T_wc, since, num_inliers, num_matches, is_keyframe)."""
-    m = match_features(feats.desc, state.descriptors, feats.valid, state.lm_valid, cfg)
+    with profiling.span("slam.match"):
+        m = match_features(feats.desc, state.descriptors, feats.valid, state.lm_valid, cfg)
     lm_idx, matched = m.idx2, m.valid
     pts_world = state.positions[lm_idx]
     pts_cam_meas = backproject(feats.xy, feats.depth, cam)
@@ -268,17 +286,21 @@ def slam_step(
 
     n_valid = torch.clamp(torch.sum(feats.valid), min=1)
     inlier_ratio = result.num_inliers / n_valid
-    need_kf = bool(
-        ok & (inlier_ratio < cfg.keyframe_min_inlier_ratio) & (since >= cfg.keyframe_min_gap)
-    )
+    with profiling.sync("step.need_kf"):
+        need_kf = bool(
+            ok & (inlier_ratio < cfg.keyframe_min_inlier_ratio) & (since >= cfg.keyframe_min_gap)
+        )
     if need_kf:
-        new_mask = feats.valid & ~matched & (feats.sem_weight >= cfg.min_landmark_weight)
-        new_slots = _new_slots(state, new_mask)
-        state = _insert_landmarks(state, T_wc, feats, new_mask, feats.sem_weight, cam)
-        all_idx = torch.where(new_mask, new_slots, lm_idx)
-        obs_mask = (matched & result.inlier_mask) | new_mask
-        state = _write_keyframe(state, T_cw, feats, all_idx, obs_mask, feats.sem_weight)
-        state = _run_local_ba(state, cam, cfg)
+        profiling.count("keyframes")
+        with profiling.span("slam.map"):
+            new_mask = feats.valid & ~matched & (feats.sem_weight >= cfg.min_landmark_weight)
+            new_slots = _new_slots(state, new_mask)
+            state = _insert_landmarks(state, T_wc, feats, new_mask, feats.sem_weight, cam)
+            all_idx = torch.where(new_mask, new_slots, lm_idx)
+            obs_mask = (matched & result.inlier_mask) | new_mask
+            state = _write_keyframe(state, T_cw, feats, all_idx, obs_mask, feats.sem_weight)
+        with profiling.span("slam.ba"):
+            state = _run_local_ba(state, cam, cfg)
     since = 0 if need_kf else since + 1
     return state, T_wc, since, result.num_inliers, m.count(), need_kf
 
@@ -299,24 +321,28 @@ def run_slam_steps(
     last keyframe. Returns ((state, T_last_wc, since), SlamOutput rows
     for these F frames); chunked callers (``slam.online``) carry the
     triple across calls."""
-    poses, n_inl, n_match, is_kf = [], [], [], []
-    for f in range(features.xy.shape[0]):
-        state, T_prev_wc, since, inl, nm, kf = slam_step(
-            uniforms[f], frame(features, f), cam, cfg, state, T_prev_wc, since
+    F = features.xy.shape[0]
+    with profiling.span("slam.steps", frames=F):
+        poses, n_inl, n_match, is_kf = [], [], [], []
+        for f in range(F):
+            state, T_prev_wc, since, inl, nm, kf = slam_step(
+                uniforms[f], frame(features, f), cam, cfg, state, T_prev_wc, since
+            )
+            poses.append(T_prev_wc)
+            n_inl.append(inl)
+            n_match.append(nm)
+            is_kf.append(kf)
+        dev = features.xy.device
+        empty = torch.zeros((0,), dtype=torch.int64, device=dev)
+        with profiling.sync("steps.is_keyframe"):  # a blocking copy from the host
+            is_keyframe = torch.tensor(is_kf, dtype=torch.bool, device=dev)
+        out = SlamOutput(
+            poses_wc=torch.stack(poses) if poses else torch.zeros((0, 4, 4), device=dev),
+            num_inliers=torch.stack(n_inl) if n_inl else empty,
+            num_matches=torch.stack(n_match) if n_match else empty,
+            is_keyframe=is_keyframe,
         )
-        poses.append(T_prev_wc)
-        n_inl.append(inl)
-        n_match.append(nm)
-        is_kf.append(kf)
-    dev = features.xy.device
-    empty = torch.zeros((0,), dtype=torch.int64, device=dev)
-    out = SlamOutput(
-        poses_wc=torch.stack(poses) if poses else torch.zeros((0, 4, 4), device=dev),
-        num_inliers=torch.stack(n_inl) if n_inl else empty,
-        num_matches=torch.stack(n_match) if n_match else empty,
-        is_keyframe=torch.tensor(is_kf, dtype=torch.bool, device=dev),
-    )
-    return (state, T_prev_wc, since), out
+        return (state, T_prev_wc, since), out
 
 
 def run_slam(
@@ -332,23 +358,24 @@ def run_slam(
     unused), or a ``torch.Generator`` they are drawn from.
     """
     F = features.xy.shape[0]
-    dev = features.xy.device
-    if isinstance(uniforms, torch.Generator):
-        uniforms = torch.rand(
-            (F, cfg.num_hypotheses, 3), generator=uniforms, device=uniforms.device
-        ).to(dev)
-    state = bootstrap_map(frame(features, 0), cam, cfg)
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    # The bootstrap frame is a keyframe: the gap counter starts at zero.
-    _, out = run_slam_steps(uniforms[1:], FrameFeatures(*[x[1:] for x in features]), cam, cfg,
-                            state, eye, 0)
-    zero = torch.zeros((1,), dtype=torch.int64, device=dev)
-    return SlamOutput(
-        poses_wc=torch.cat([eye[None], out.poses_wc]),
-        num_inliers=torch.cat([zero, out.num_inliers]),
-        num_matches=torch.cat([zero, out.num_matches]),
-        is_keyframe=torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), out.is_keyframe]),
-    )
+    with profiling.span("slam.run", frames=F):
+        dev = features.xy.device
+        if isinstance(uniforms, torch.Generator):
+            uniforms = torch.rand(
+                (F, cfg.num_hypotheses, 3), generator=uniforms, device=uniforms.device
+            ).to(dev)
+        state = bootstrap_map(frame(features, 0), cam, cfg)
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        # The bootstrap frame is a keyframe: the gap counter starts at zero.
+        _, out = run_slam_steps(uniforms[1:], FrameFeatures(*[x[1:] for x in features]), cam, cfg,
+                                state, eye, 0)
+        zero = torch.zeros((1,), dtype=torch.int64, device=dev)
+        return SlamOutput(
+            poses_wc=torch.cat([eye[None], out.poses_wc]),
+            num_inliers=torch.cat([zero, out.num_inliers]),
+            num_matches=torch.cat([zero, out.num_matches]),
+            is_keyframe=torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), out.is_keyframe]),
+        )
 
 
 def refine_active_map(state: MapState, cam: PinholeCamera, cfg: SlamConfig,

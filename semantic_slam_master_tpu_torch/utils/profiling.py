@@ -1,4 +1,5 @@
-"""Stage timing, traces and cost counts (port of ``utils/profiling.py``).
+"""Stage timing, traces, cost counts and the program's recorder (port of
+``utils/profiling.py``).
 
 On a CUDA device a stage is timed with CUDA events; on the CPU with
 ``time.perf_counter``. ``marginal_time_ms`` runs the stage back to back at
@@ -6,15 +7,26 @@ two repetition counts and takes the difference per extra iteration, so
 the fixed cost of starting and ending a timed run (event records, the
 final synchronisation, Python's call overhead around the loop) cancels;
 that fixed cost is returned as ``overhead_ms``. ``device_trace`` records
-a ``torch.profiler`` trace, ``stage_cost`` counts a stage's operations,
-and ``StageTimer`` sums named host-clock stages.
+a ``torch.profiler`` trace and ``stage_cost`` counts a stage's operations.
+
+The recorder: the program opens a ``span`` around each layer's work,
+``count``s what it does there, and wraps each point where the host waits
+for the device (a device value read on the host, a blocking copy from the
+host) in a ``sync``. A span with no open parent on its thread is a
+root call; ``calls()`` returns the completed root calls, each with the
+count, host time, self time and device time of every span inside it and
+its counters. Recording is always on; ``enabled`` exists to measure what
+it costs.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
-from typing import Callable, Dict, Optional
+from collections import deque
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -117,29 +129,196 @@ def device_trace(log_dir: Optional[str] = None):
         yield
 
 
-class StageTimer:
-    """Accumulating named-stage wall timer for host-side loops."""
+# --- The program's recorder ------------------------------------------------
 
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+enabled = True  # switched off only to measure what recording costs
+MAX_CALLS = 8192  # completed root calls kept, newest last
+HOST_SYNCS = "host_syncs"  # the counter every ``sync`` adds to
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+_calls: deque = deque(maxlen=MAX_CALLS)
+_ids = itertools.count()
+_local = threading.local()
+_pending: list = []  # (stat, start event, end event) of device spans not yet read
+_pending_lock = threading.Lock()
 
-    def report(self) -> Dict[str, Dict[str, float]]:
-        return {
-            k: {
-                "total_s": self.totals[k],
-                "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1),
-                "count": self.counts[k],
-            }
-            for k in self.totals
-        }
+
+class _Root:
+    """A root call as it is recorded: per span name [count, host_ns,
+    self_ns, device_ms] (device_ms None for a span without a device)."""
+
+    __slots__ = ("id", "name", "frames", "profiled", "spans", "counters")
+
+    def __init__(self, name: str, frames):
+        self.id, self.name, self.frames = None, name, frames
+        self.profiled = False
+        self.spans: Dict[str, list] = {}
+        self.counters: Dict[str, int] = {}
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _read_events(block: bool) -> None:
+    """Add the device time of each recorded device span whose end event has
+    completed (all of them, waiting, when ``block``) to its span's stat."""
+    global _pending
+    with _pending_lock:
+        left = []
+        for stat, start, end in _pending:
+            if block:
+                end.synchronize()
+            elif not end.query():
+                left.append((stat, start, end))
+                continue
+            stat[3] += start.elapsed_time(end)
+        _pending = left
+
+
+class span:
+    """``with span(name, frames=None, device=None):`` records the block's
+    host time (``time.perf_counter_ns``), and its self time (less its
+    child spans'), in this thread's open root call, or opens a root call of
+    ``frames`` frames when none is open. Given a CUDA ``device``, it also records a CUDA event pair on
+    that device's current stream, read when the records are read, with no
+    synchronise. While a ``torch.profiler`` runs, the block is also a
+    range of the same name in its trace, on the trace's clock: a host op
+    (``_RecordFunctionFast``), not a ``record_function`` user annotation,
+    whose copy on the device's timeline a trace's reader would take for
+    device work."""
+
+    __slots__ = ("name", "frames", "device", "_root", "_t0", "_child_ns", "_start", "_range", "_on")
+
+    def __init__(self, name: str, frames: Optional[int] = None, device=None):
+        self.name, self.frames, self.device = name, frames, device
+
+    def __enter__(self):
+        self._on = enabled
+        if not self._on:
+            return self
+        stack = _stack()
+        self._root = stack[0]._root if stack else _Root(self.name, self.frames)
+        stack.append(self)
+        self._child_ns = 0
+        self._range = self._start = None
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._root.profiled = True
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
+        if self.device is not None and torch.device(self.device).type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self.device))
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if not self._on:
+            return False
+        ns = time.perf_counter_ns() - self._t0
+        root = self._root
+        stat = root.spans.get(self.name)
+        if stat is None:
+            stat = root.spans[self.name] = [0, 0, 0, None]
+        stat[0] += 1
+        stat[1] += ns
+        stat[2] += ns - self._child_ns
+        if self._start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            if stat[3] is None:
+                stat[3] = 0.0
+            with _pending_lock:
+                _pending.append((stat, self._start, end))
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        stack = _stack()
+        stack.pop()
+        if stack:
+            stack[-1]._child_ns += ns
+        else:
+            root.profiled = root.profiled or torch.autograd.profiler._is_profiler_enabled
+            root.id = next(_ids)
+            _calls.append(root)
+            if _pending:
+                _read_events(block=False)
+        return False
+
+
+class sync(span):
+    """``with sync(name, n=1):`` around a read of a device value on the
+    host (``n`` reads): the span ``sync.<name>`` and ``n`` added to the
+    ``host_syncs`` counter."""
+
+    __slots__ = ("_n",)
+
+    def __init__(self, name: str, n: int = 1):
+        super().__init__("sync." + name)
+        self._n = n
+
+    def __enter__(self):
+        super().__enter__()
+        if self._on:
+            counters = self._root.counters
+            counters[HOST_SYNCS] = counters.get(HOST_SYNCS, 0) + self._n
+        return self
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of this thread's open root call
+    (nothing is recorded outside one)."""
+    if not enabled:
+        return
+    stack = _stack()
+    if stack:
+        counters = stack[0]._root.counters
+        counters[name] = counters.get(name, 0) + n
+
+
+def mark() -> int:
+    """The id of the next root call to complete: ``calls(since=mark())``
+    taken later returns the root calls completed in between."""
+    return _calls[-1].id + 1 if _calls else 0
+
+
+def calls(since: int = 0) -> List[dict]:
+    """The completed root calls with ids from ``since``, newest last (at
+    most ``MAX_CALLS``), each {"id", "name", "frames", "profiled", "spans":
+    {name: {"count", "host_ns", "self_ns", "device_ms"}}, "counters"}; a
+    span's ``device_ms`` is None unless it was given a CUDA device. Waits
+    for the device spans' end events."""
+    _read_events(block=True)
+    return [
+        {"id": r.id, "name": r.name, "frames": r.frames, "profiled": r.profiled,
+         "spans": {k: {"count": c, "host_ns": h, "self_ns": s, "device_ms": d}
+                   for k, (c, h, s, d) in r.spans.items()},
+         "counters": dict(r.counters)}
+        for r in list(_calls) if r.id >= since
+    ]
+
+
+def per_frame(records: List[dict], frames: int) -> dict:
+    """Root calls summed and divided by ``frames``: {"frames", "spans":
+    {name: {"count", "host_ms", "self_ms"[, "device_ms"]}} (ms a frame,
+    count in all), "counters": {name: total}}."""
+    spans: Dict[str, list] = {}
+    counters: Dict[str, int] = {}
+    for r in records:
+        for k, v in r["spans"].items():
+            acc = spans.setdefault(k, [0, 0, 0, None])
+            acc[0] += v["count"]
+            acc[1] += v["host_ns"]
+            acc[2] += v["self_ns"]
+            if v["device_ms"] is not None:
+                acc[3] = (acc[3] or 0.0) + v["device_ms"]
+        for k, v in r["counters"].items():
+            counters[k] = counters.get(k, 0) + v
+    f = max(frames, 1)
+    out = {}
+    for k, (c, h, s, d) in spans.items():
+        out[k] = {"count": c, "host_ms": h / 1e6 / f, "self_ms": s / 1e6 / f}
+        if d is not None:
+            out[k]["device_ms"] = d / f
+    return {"frames": frames, "spans": out, "counters": counters}

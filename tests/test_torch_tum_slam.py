@@ -93,6 +93,14 @@ def test_keyframes_and_inliers_match_jax_cli(runs):
     assert prun["frames"] == jrun["frames"] == 12
     assert prun["keyframes"] == jrun["keyframes"] >= 2
     np.testing.assert_allclose(prun["mean_inliers"], jrun["mean_inliers"], rtol=1e-3)
+    trace = prun["trace"]
+    assert trace["frames"] == 12
+    assert {"frontend.features", "stage.pad", "slam.run", "slam.bootstrap", "slam.steps", "slam.match",
+            "slam.ransac", "slam.refine", "slam.map", "slam.ba"} <= set(trace["spans"])
+    assert set(trace["spans"]["slam.match"]) == {"count", "host_ms", "self_ms"}
+    assert trace["spans"]["slam.match"]["count"] == 11
+    assert trace["counters"]["keyframes"] == prun["keyframes"] - 1  # the bootstrap frame is not counted
+    assert trace["counters"]["host_syncs"] > 0
 
 
 def test_inputs_follow_the_jax_decode_rule(data_root):
