@@ -39,7 +39,8 @@ device synchronised at the end of each):
 8. ORB main path -- ``run-slam --synthetic`` at 640x480 with the defaults
    (512 keypoints, 2048 landmarks, window 5, 4 BA iterations, 16-frame
    frontend chunks), then ``evaluate``; ATE finite and below 0.05 m, both
-   ORB kernels launched 4x per frontend chunk.
+   ORB kernels launched 4x per frontend chunk, pnp_refine once per tracked
+   frame (59), its inputs recorded for phase 33.
 9. learned frontend + segmenter -- the ViT-S/16 frontend of
    configs/train_vits_synthetic_long.yaml (its offset head's last conv
    given seeded non-zero weights, so sub-patch offsets are not all 0) and
@@ -60,7 +61,8 @@ device synchronised at the end of each):
    weights/segmenter.npz`` (the trained ViT-S/16 at full width with
    sub-patch refinement and the trained segmenter, 8-frame chunks), 60
    frames, then ``evaluate``: finite poses, ATE below VITS_ATE_BOUND_M,
-   gather_patches launched at least once per chunk; fps and the time
+   gather_patches launched at least once per chunk, pnp_refine once per
+   tracked frame (59), its inputs recorded for phase 33; fps and the time
    split (segmenter, backbone, heads, SLAM loop) of the trained pair
    printed.
 11. dynamic path -- ``run-slam --synthetic --dynamic --seed 1`` (ORB
@@ -196,6 +198,17 @@ device synchronised at the end of each):
    package's forward on the same pairs and weights (VITS_WARM_JAX);
    step time and peak memory printed.
 
+33. pnp_refine vs plain -- after phase 10, on every tracked frame's
+   inputs recorded in phases 8 (ORB, N=512) and 10 (learned, N=500): the
+   kernel's pose, count, mask and rmse equal to its plain version's bits;
+   printed beside them, per path, the frames that kept T_best, the ties
+   (the refined inlier set is the best's) and how many of those have two
+   support sums that differ in bits, and the frames whose best row of the
+   batched inlier masks differs from its own recount. Then the kernel
+   timed on the ORB path's middle frame (median_ms, as above) beside the
+   plain version on the host clock, synchronised, and the bound (bytes
+   over 3.35 TB/s; the kernel is latency-bound).
+
 Every path that runs a kernel resets the launch counters just before it
 and reads them just after; the kernels line sums them (``launches``)
 beside each path's count (``launches_by_path``). The whole script aims
@@ -222,6 +235,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -230,6 +244,7 @@ MAIN_FRAMES = 60  # the run-slam default; not cut
 TIMED_ITERS = 20
 WARMUP_ITERS = 3
 PLAIN_ITERS = 5
+PLAIN_FRAMES = 20  # pnp_refine's plain version timed on a path's first frames
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: covers the host's enqueue
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and the
 # non-tensor-core float32 rate, which counts an FMA as two operations.
@@ -766,6 +781,96 @@ def check_gather(torch, kgather, gen, flush) -> dict:
     return report
 
 
+@contextlib.contextmanager
+def refine_inputs(torch):
+    """Record what ``pnp.ransac_pose`` hands ``pnp_refine`` (copies of its
+    arguments) on every call inside the block; the kernel still runs, and
+    its launch count is untouched."""
+    from semantic_slam_master_tpu_torch.ops.kernels import pnp_refine as kref
+    from semantic_slam_master_tpu_torch.slam import pnp
+
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args], kw))
+        return kref.pnp_refine(*args, **kw)
+
+    pnp.pnp_refine = types.SimpleNamespace(pnp_refine=recording)  # stands for the module there
+    try:
+        yield calls
+    finally:
+        pnp.pnp_refine = kref
+
+
+def refine_bytes(args) -> int:
+    """What the kernel must read and write once: points, observations, w,
+    w_sem, valid and mask (N each), T_best, supports, inls and best; the
+    pose, the count, the mask and the rmse."""
+    N, H = args[1].shape[0], args[8].numel()
+    return N * (12 + 8 + 4 + 4 + 1 + 1) + 64 + H * (4 + 8) + 8 + 64 + 8 + N + 4
+
+
+def check_refine(torch, paths: dict) -> dict:
+    """Phase 33 (the module docstring): pnp_refine against its plain version
+    on what each path's ``ransac_pose`` handed it, to the bit; timed on the
+    ORB path's middle frame for the kernels line."""
+    from semantic_slam_master_tpu_torch.ops.kernels import pnp_refine as kref
+    from semantic_slam_master_tpu_torch.slam import pnp
+
+    for path, calls in paths.items():
+        differ, kept, ties, split, below, rows_differ = [], 0, 0, 0, 0, 0
+        for f, (args, kw) in enumerate(calls):
+            T_best, points, obs, cam, w, w_sem, valid, mask, supports, inls, best = args
+            got = kref.pnp_refine(*args, **kw)
+            ref = kref.pnp_refine_plain(*args, **kw)
+            outs = [name for name, a, b in zip(("pose", "count", "mask", "rmse"), got, ref) if not torch.equal(a, b)]
+            if outs:
+                differ.append((f, *outs))
+            kept += torch.equal(ref[0], T_best)
+            # A tie: the refined pose has the best hypothesis's inlier set,
+            # so the two supports are one sum taken in two orders.
+            T_ref = pnp.refine_pose(T_best, points, obs, cam, weights=w, num_iters=kw["num_iters"])
+            _, mask_ref = pnp.count_inliers(T_ref, points, obs, cam, valid, kw["threshold"])
+            if torch.equal(mask_ref, mask):
+                ties += 1
+                sup_ref = torch.sum(mask_ref * w_sem)
+                split += not torch.equal(sup_ref, supports[best])
+                below += bool(sup_ref < supports[best])
+            # The best hypothesis's row of the batched recount against its own.
+            H = supports.numel()
+            rows = pnp.count_inliers(T_best.expand(H, 4, 4).contiguous(), points, obs, cam, valid, kw["threshold"])[1]
+            rows_differ += not torch.equal(rows[0], mask)
+        sizes = sorted({args[1].shape[0] for args, _ in calls})
+        log(f"  {path}: {len(calls)} calls, N={sizes}: kernel's pose, count, mask or rmse not the plain bits on "
+            f"{len(differ)} {differ}; T_best kept on {kept}; ties (the refined inlier set is the best's) on {ties}, "
+            f"their two support sums differing in bits on {split} (the refined one below on {below}); "
+            f"masks[best] != mask on {rows_differ}")
+        if differ:
+            raise AssertionError(f"pnp_refine differs from its plain version on the {path} path's frames {differ}")
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    report = {"max_abs_err": 0.0}
+    for path, calls in paths.items():
+        args, kw = calls[len(calls) // 2]
+        ms = median_ms(lambda: kref.pnp_refine(*args, **kw), TIMED_ITERS, WARMUP_ITERS, flush)
+        plain = []
+        for a, k in calls[:PLAIN_FRAMES]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kref.pnp_refine_plain(*a, **k)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t0) * 1e3)
+        plain_ms = sorted(plain)[len(plain) // 2]
+        nbytes = refine_bytes(args)
+        b_ms, _ = bound(nbytes, 0.0)
+        log(f"  pnp_refine on the {path} path's middle frame, N={args[1].shape[0]}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"(host clock, synchronised; median of {len(plain)} frames) bound_ms={b_ms:.6f} (bytes {nbytes}; "
+            f"latency-bound: {kw['num_iters']} dependent steps)")
+        if path == "orb":
+            report.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=0.0)
+    return report
+
+
 def check_learned(torch, synthetic, render_all, tracking, config_mod, seg_mod, select_keypoints) -> None:
     """The ViT-S/16 learned frontend and the segmenter on the card against
     the CPU, the same seeded weights on both (bounds in the docstring).
@@ -1184,7 +1289,7 @@ def read_jsonl(path: str) -> list:
 def train_phase_launches(counts: dict, steps: int, name: str) -> None:
     """gather_patches launches twice per train or eval step (one refine_at
     per frame of the pair) and nothing else launches in training."""
-    want = {"fast_score": 0, "gather_aligned_patches": 0, "gather_patches": 2 * steps}
+    want = {"fast_score": 0, "gather_aligned_patches": 0, "gather_patches": 2 * steps, "pnp_refine": 0}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
 
@@ -1619,13 +1724,14 @@ def sync(torch, device: str) -> None:
 
 
 def kernel_counts() -> tuple:
-    """(reset, read) of the three kernel wrappers' launch counts."""
+    """(reset, read) of the four kernel wrappers' launch counts."""
     from semantic_slam_master_tpu_torch.ops.kernels import fast_score as kfast
     from semantic_slam_master_tpu_torch.ops.kernels import gather_patches as kgather
     from semantic_slam_master_tpu_torch.ops.kernels import patches as kpatch
+    from semantic_slam_master_tpu_torch.ops.kernels import pnp_refine as kref
 
     counters = {"fast_score": kfast.fast_score, "gather_aligned_patches": kpatch.gather_aligned_patches,
-                "gather_patches": kgather.gather_patches}
+                "gather_patches": kgather.gather_patches, "pnp_refine": kref.pnp_refine}
 
     def reset_counts():
         for c in (*counters.values(), kgather.gather_patches_padded):
@@ -1661,7 +1767,7 @@ def fleet_phase(torch, frames, record, reset_counts, read_counts, card, device: 
     fleet_s = time.perf_counter() - t0
     counts = read_counts()
     chunks = -(-len(gray) // run_slam_cli.FRONTEND_CHUNK)
-    record("fleet", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+    record("fleet", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks, "pnp_refine": S * (F - 1)})
     if out.poses_wc.shape != (S, F, 4, 4) or not bool(torch.isfinite(out.poses_wc).all()):
         raise AssertionError(f"fleet poses {tuple(out.poses_wc.shape)}, finite {bool(torch.isfinite(out.poses_wc).all())}")
     runs = []
@@ -1956,8 +2062,9 @@ def main() -> int:
     with phase("ORB main path: run-slam --synthetic + evaluate"), \
             tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         reset_counts()
-        run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp,
-                                ["--synthetic", "--synthetic-frames", str(MAIN_FRAMES)])
+        with refine_inputs(torch) as refine_orb:
+            run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp,
+                                    ["--synthetic", "--synthetic-frames", str(MAIN_FRAMES)])
         counts = read_counts()
         ate = res["ate"]["rmse"]
         chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
@@ -1966,7 +2073,11 @@ def main() -> int:
             f"launches={counts} frontend_chunks={chunks} run={run}")
         if not (ate == ate and ate < 0.05):
             raise AssertionError(f"ATE {ate} is not finite and below 0.05 m")
-        record("orb", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+        record("orb", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
+                               "pnp_refine": MAIN_FRAMES - 1})
+        if counts["pnp_refine"] != MAIN_FRAMES - 1:
+            raise AssertionError(f"pnp_refine launched {counts['pnp_refine']} times on the ORB path, expected one a "
+                                 f"tracked frame ({MAIN_FRAMES - 1})")
 
     with phase("learned frontend + segmenter card vs cpu"):
         check_learned(torch, synthetic, run_slam_cli.render_all, tracking, config_mod, seg_mod,
@@ -1976,10 +2087,11 @@ def main() -> int:
                "model --segmenter-checkpoint weights/segmenter.npz + evaluate"), \
             tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         reset_counts()
-        run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
-            "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--frontend", "learned",
-            "--train-config", VITS_CONFIG, "--checkpoint", VITS_WEIGHTS, "--semantics", "model",
-            "--segmenter-checkpoint", SEGMENTER_WEIGHTS])
+        with refine_inputs(torch) as refine_learned:
+            run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
+                "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--frontend", "learned",
+                "--train-config", VITS_CONFIG, "--checkpoint", VITS_WEIGHTS, "--semantics", "model",
+                "--segmenter-checkpoint", SEGMENTER_WEIGHTS])
         counts = read_counts()
         ate = res["ate"]["rmse"]
         chunks = -(-MAIN_FRAMES // run_slam_cli.LEARNED_CHUNK)
@@ -1992,12 +2104,19 @@ def main() -> int:
         if not (run["finite_poses"] and ate == ate and ate < VITS_ATE_BOUND_M):
             raise AssertionError(f"trained ViT-S/16 learned path: ATE {ate} m is not finite and below "
                                  f"{VITS_ATE_BOUND_M} m")
-        record("learned_vits", counts, {"gather_patches": chunks})
+        record("learned_vits", counts, {"gather_patches": chunks, "pnp_refine": MAIN_FRAMES - 1})
+        if counts["pnp_refine"] != MAIN_FRAMES - 1:
+            raise AssertionError(f"pnp_refine launched {counts['pnp_refine']} times on the learned path, expected "
+                                 f"one a tracked frame ({MAIN_FRAMES - 1})")
         split = learned_split(torch, synthetic, run_slam_cli.render_all, tracking, run_slam_cli,
                               select_keypoints)
         log("  learned path, device ms per 8-frame chunk (warm): "
             + " ".join(f"{k}={v:.3f}" for k, v in split.items())
             + f"; SLAM loop {1e3 * run['backend_s'] / MAIN_FRAMES:.2f} ms/frame (cold, host clock)")
+
+    with phase("33. pnp_refine vs plain on what the ORB and learned paths' ransac_pose handed it"):
+        refine = check_refine(torch, {"orb": refine_orb, "learned_vits": refine_learned})
+    del refine_orb, refine_learned
 
     with phase(f"dynamic path: run-slam --dynamic --seed {DYNAMIC_SEED}, --semantics gt and off, + evaluate"):
         ates = {}
@@ -2013,7 +2132,7 @@ def main() -> int:
             log(f"  --semantics {semantics}: frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} "
                 f"fps={run['fps']} ate_rmse_m={ate:.5f} keyframes={run['keyframes']} launches={counts}")
             record(f"dynamic_{semantics}", counts,
-                   {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+                   {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks, "pnp_refine": MAIN_FRAMES - 1})
         log(f"  dynamic ATE seed {DYNAMIC_SEED}: gt {ates['gt']:.5f} m (bound < {DYNAMIC_ATE_BOUND_M}), "
             f"off {ates['off']:.5f} m (bound > {DYNAMIC_OFF_ATE_FLOOR_M})")
         if not (ates["gt"] == ates["gt"] and ates["gt"] < DYNAMIC_ATE_BOUND_M):
@@ -2040,7 +2159,7 @@ def main() -> int:
         if not (run["finite_poses"] and ate == ate and ate < TINY_ATE_BOUND_M):
             raise AssertionError(f"trained tiny learned path: ATE {ate} m is not finite and below "
                                  f"{TINY_ATE_BOUND_M} m")
-        record("learned_tiny", counts, {"gather_patches": chunks})
+        record("learned_tiny", counts, {"gather_patches": chunks, "pnp_refine": MAIN_FRAMES - 1})
 
     with phase(f"trained segmenter: run-slam --dynamic --seed {DYNAMIC_SEED} --semantics model "
                "--segmenter-checkpoint + evaluate"), \
@@ -2052,7 +2171,8 @@ def main() -> int:
         counts = read_counts()
         ate = res["ate"]["rmse"]
         chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
-        record("dynamic_model", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+        record("dynamic_model", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
+                                         "pnp_refine": MAIN_FRAMES - 1})
         recall, accuracy = segmenter_fidelity(torch, synthetic, run_slam_cli.render_all, seg_mod,
                                               run_slam_cli)
         log(f"  frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} fps={run['fps']} "
@@ -2070,7 +2190,8 @@ def main() -> int:
         loop = loop_path(torch, synthetic, run_slam_cli, system, online, prng, ate_rpe, reset_counts,
                          read_counts)
         chunks = -(-LOOP_FRAMES // run_slam_cli.FRONTEND_CHUNK)
-        record("loop", loop["counts"], {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+        record("loop", loop["counts"], {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
+                                        "pnp_refine": 2 * (LOOP_FRAMES - 1)})
         for name, r in loop["runs"].items():
             t = r["timings"]
             slam_s = [c["slam_s"] for c in t]
@@ -2112,7 +2233,8 @@ def main() -> int:
             if not (run["finite_poses"] and ate == ate and ate < CLI_LOOP_ATE_BOUND_M):
                 raise AssertionError(f"--loop-closure {mode}: ATE {ate} m is not finite and below "
                                      f"{CLI_LOOP_ATE_BOUND_M} m")
-            record(f"cli_{mode}", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+            record(f"cli_{mode}", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
+                                           "pnp_refine": MAIN_FRAMES - 1})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tum_root:
         with phase("TUM input: write, decode (native and plain), pinned frame_chunks to the card"):
@@ -2138,7 +2260,8 @@ def main() -> int:
                 if counts[name] != 4 * chunks:
                     raise AssertionError(f"{name} launched {counts[name]} times on the TUM path, expected "
                                          f"{4 * chunks}")
-            record("tum", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks})
+            record("tum", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
+                                   "pnp_refine": MAIN_FRAMES - 1})
 
         with phase("acceptance suite: run-tests --frontend orb-pyramid (TUM) and learned (--synthetic)"), \
                 tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2192,6 +2315,11 @@ def main() -> int:
          "semantic_slam_master_tpu/ops/pallas/patches.py:64", gather,
          "one 8-frame learned chunk: 8x500 windows of 21x21 from 480x640; library_ms is one "
          "torch.gather over the precomputed index, the gather alone"),
+        ("pnp_refine", "semantic_slam_master_tpu_torch/csrc/pnp_refine.cu",
+         "none: the slam.refine span of semantic_slam_master_tpu_torch/slam/pnp.py::ransac_pose", refine,
+         "one call on the ORB path's middle tracked frame (N=512, as ransac_pose handed it); plain_ms on the "
+         "host clock, synchronised (the plain version reads the device 12 times); bound: the bytes read and "
+         "written once, the kernel is latency-bound (10 dependent Gauss-Newton steps)"),
     ):
         b_ms, b_by = bound(r["bytes"], r["ops"])
         kernels.append({

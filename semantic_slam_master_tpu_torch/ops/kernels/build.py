@@ -34,6 +34,7 @@ SIGNATURES = {
     "semslam_fast_score": [_vp, _vp, _int, _int, _int, ctypes.c_float, _vp],
     "semslam_aligned_patches": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "semslam_gather_patches": [_vp, _vp, _vp, *[_int] * 10, _vp],
+    "semslam_pnp_refine": [*[_vp] * 15, _int, _int, *[ctypes.c_float] * 7, _vp],
 }
 
 

@@ -14,6 +14,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import PinholeCamera, project
+from ..ops.kernels import pnp_refine
 from ..utils import profiling
 
 _mm = lie.mm_small
@@ -203,9 +204,10 @@ def ransac_pose(
     scored by semantically weighted inlier support on ``observations``;
     the best is refined with Gauss-Newton and kept only if support does
     not drop. Recorded as the spans ``slam.ransac`` (draws, fits, scoring,
-    the best hypothesis's mask) and ``slam.refine`` (the polish, rescoring,
-    refine-or-keep, rmse); indexing with the 0-dim ``best`` reads it on the
-    host, a ``sync`` each time.
+    the best hypothesis's mask; indexing with the 0-dim ``best`` reads it on
+    the host, a ``sync``) and ``slam.refine`` (the polish, rescoring,
+    refine-or-keep, rmse: ``ops/kernels/pnp_refine.py``, one kernel launch
+    on the card, the plain version on the CPU).
     """
     with profiling.span("slam.ransac"):
         w_sem = valid.to(points.dtype) if weights is None else valid.to(points.dtype) * weights
@@ -225,19 +227,7 @@ def ransac_pose(
         if weights is not None:
             w = w * weights
     with profiling.span("slam.refine"):
-        T_ref = refine_pose(T_best, points, observations, cam, weights=w, num_iters=refine_iters)
-        inl_ref, mask_ref = count_inliers(T_ref, points, observations, cam, valid, inlier_threshold)
-        sup_ref = torch.sum(mask_ref * w_sem)
-        with profiling.sync("refine.best_support"):
-            best_support = supports[best]
-        use_ref = sup_ref >= best_support
-        T_final = torch.where(use_ref, T_ref, T_best)
-        with profiling.sync("refine.best_inliers"):
-            best_inliers = inls[best]
-        inl_final = torch.where(use_ref, inl_ref, best_inliers)
-        mask_final = torch.where(use_ref, mask_ref, mask)
-
-        r, _ = reprojection_residuals(T_final, points, observations, cam)
-        err2 = torch.sum(r * r, dim=-1)
-        rmse = torch.sqrt(torch.sum(err2 * mask_final) / torch.clamp(torch.sum(mask_final), min=1))
-    return PnPResult(pose=T_final, num_inliers=inl_final, inlier_mask=mask_final, rmse=rmse)
+        pose, num_inliers, inlier_mask, rmse = pnp_refine.pnp_refine(
+            T_best, points, observations, cam, w, w_sem, valid, mask, supports, inls, best,
+            threshold=inlier_threshold, num_iters=refine_iters)
+    return PnPResult(pose=pose, num_inliers=num_inliers, inlier_mask=inlier_mask, rmse=rmse)

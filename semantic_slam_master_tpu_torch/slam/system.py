@@ -19,7 +19,8 @@ calls them); inside, the spans ``slam.match``, ``slam.ransac`` and
 ``sync`` at each read of a device value on the host and each blocking copy
 from it (``lie.make_pose``'s constant row among them), and the counter
 ``keyframes`` (tracked frames that became keyframes; the bootstrap frame
-is not counted).
+is not counted); on the card also ``refine_kernels``, one launch of
+``slam.refine``'s kernel a tracked frame.
 """
 
 from __future__ import annotations
