@@ -12,7 +12,7 @@ import time
 import numpy as np
 import torch
 
-from . import check, trace, world as world_mod
+from . import check, trace, weights, world as world_mod
 from .manifest import Manifest
 from .readers import Context
 
@@ -36,6 +36,20 @@ def power_limit_w():
         return float(out.stdout.split()[0])
     except (OSError, ValueError, IndexError, subprocess.TimeoutExpired):
         return None
+
+
+def free(device: torch.device) -> None:
+    """Return the memory of dropped models to the device."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def same_weights(port_shapes: dict, reference) -> None:
+    """Raise unless each reference model has the port's state-dict keys
+    and shapes."""
+    for what, shapes in port_shapes.items():
+        weights.same_shapes(shapes, reference.weight_shapes[what], what)
 
 
 class Run:
@@ -62,10 +76,14 @@ class Run:
         self.world = world_mod.render(self.traffic, cam, self.seed, self.config["slam"]["num_hypotheses"],
                                       self.render_workers)
         log(f"render of {self.traffic['frames']} frames: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         self.program = program.Program(self.config, self.manifest.root, self.device)
+        log(f"models: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         self.drive.warm(self.program, self.world, trace.Tracer(self.device, False))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        log(f"warm pass: {time.perf_counter() - t:.1f} s")
 
     def window(self, seconds: float, traced: bool):
         self.tracer = trace.Tracer(self.device, traced)
@@ -81,12 +99,12 @@ class Run:
         from .reference_run import Reference
 
         out = dict(self.result.sample, poses=self.result.poses, truth=self.world.poses_wc)
+        port_shapes = self.program.weight_shapes
         self.program = None
-        gc.collect()
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+        free(self.device)
         t = time.perf_counter()
         reference = Reference(self.config, self.manifest.root, self.device)
+        same_weights(port_shapes, reference)
         ref = reference.run(self.world, self.drive.WITH_SLAM, follow=out["features"])
         log(f"reference: {time.perf_counter() - t:.1f} s")
         if ref["poses"] is not None and out["poses"]:

@@ -84,6 +84,9 @@ def gather_patches_bound_s(frames: int, keypoints: int, radius: int, patch_size:
 
 # Model FLOPs, two per multiply-add, from the configuration's shapes.
 
+# d x hidden products of a ViT block's feed-forward, by ``model.ffn``.
+FFN_PRODUCTS = {"gelu_mlp": 2, "swiglu": 3}
+
 
 def dense(tokens: int, n_in: int, n_out: int) -> int:
     return 2 * tokens * n_in * n_out
@@ -94,15 +97,17 @@ def conv(out_pixels: int, n_in: int, n_out: int, k: int) -> int:
 
 
 def vit_flops(height: int, width: int, embed_dim: int, depth: int, num_heads: int, patch_size: int,
-              num_registers: int, mlp_ratio: float) -> int:
+              num_registers: int, mlp_ratio: float, ffn: str = "gelu_mlp") -> int:
     """ViT forward: patch embedding, then per block qkv, the two attention
     products (scores and their product with V, all heads), the output
-    projection and the MLP."""
+    projection and the feed-forward block of hidden width ``mlp_ratio * d``:
+    a GELU MLP's two d x hidden products, a SwiGLU's three (gate, up,
+    down). Softmax, RoPE and LayerScale are elementwise and count 0."""
     patches = (height // patch_size) * (width // patch_size)
     t = patches + 1 + num_registers
     d = embed_dim
     hidden = int(d * mlp_ratio)
-    block = dense(t, d, 3 * d) + 2 * (2 * t * t * d) + dense(t, d, d) + dense(t, d, hidden) + dense(t, hidden, d)
+    block = dense(t, d, 3 * d) + 2 * (2 * t * t * d) + dense(t, d, d) + FFN_PRODUCTS[ffn] * dense(t, d, hidden)
     return dense(patches, patch_size * patch_size * 3, d) + depth * block
 
 
@@ -149,9 +154,10 @@ def model_flops_per_frame(config: dict) -> int:
     h, w = cam["height"], cam["width"]
     total = 0
     if config["frontend"] == "learned":
-        s = config["model"]["sizes"]
+        m = config["model"]
+        s = m["sizes"]
         total += vit_flops(h, w, s["embed_dim"], s["depth"], s["num_heads"], s["patch_size"],
-                           config["model"]["num_registers"], config["model"]["mlp_ratio"])
+                           m["num_registers"], m["mlp_ratio"], m.get("ffn", "gelu_mlp"))
         total += heads_flops(h, w, s["embed_dim"], s["patch_size"], s["selector_hidden"], s["refiner_hidden"],
                              s["refiner_layers"], s["descriptor_dim"], s["estimator_hidden"], s["num_keypoints"],
                              s["subpatch_refine"])

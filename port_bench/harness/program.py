@@ -6,6 +6,8 @@ they return."""
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
@@ -17,6 +19,8 @@ from semantic_slam_master_tpu_torch.models import frontend as frontend_mod
 from semantic_slam_master_tpu_torch.models import segmenter as segmenter_mod
 from semantic_slam_master_tpu_torch.ops.kernels import build
 from semantic_slam_master_tpu_torch.slam import system, tracking
+
+from . import weights
 
 
 def build_kernels() -> float:
@@ -33,24 +37,37 @@ def slam_config(config: dict) -> system.SlamConfig:
 
 class Program:
     """The port at one configuration, on ``device``: its models loaded
-    from the committed weights, its stages called as ``run-slam`` calls
-    them."""
+    from the committed weights or drawn from the configuration's seed
+    (``harness/weights.py``), its stages called as ``run-slam`` calls
+    them. ``weight_shapes`` keeps each model's state-dict keys and shapes
+    for the reference to be held to."""
 
     def __init__(self, config: dict, root, device: torch.device):
         self.config, self.device = config, device
         self.cam = PinholeCamera(**config["camera"])
         self.slam_cfg = slam_config(config)
         self.frontend = self.segmenter = None
+        self.weight_shapes = {}
         if config["frontend"] == "learned":
             m = config["model"]
-            model = frontend_mod.LearnedFrontend(**m["sizes"], dtype=torch.bfloat16)
-            model.load_state_dict(convert.frontend_state_dict(str(root / m["checkpoint"])))
-            self.frontend = model.to(device).eval()
+            make = partial(frontend_mod.LearnedFrontend, **m["sizes"], dtype=torch.bfloat16)
+            if "weights" in m:
+                self.frontend = weights.drawn(make, m, device)
+            else:
+                model = make()
+                model.load_state_dict(convert.frontend_state_dict(str(root / m["checkpoint"])))
+                self.frontend = model.to(device).eval()
+            self.weight_shapes["model"] = weights.shapes(self.frontend)
         if config.get("semantics") == "model":
             s = config["segmenter"]
-            seg = segmenter_mod.SemanticSegmenter(**s["sizes"])
-            seg.load_state_dict(convert.segmenter_state_dict(str(root / s["checkpoint"])))
-            self.segmenter = seg.to(device).eval()
+            make = partial(segmenter_mod.SemanticSegmenter, **s["sizes"])
+            if "weights" in s:
+                self.segmenter = weights.drawn(make, s, device)
+            else:
+                seg = make()
+                seg.load_state_dict(convert.segmenter_state_dict(str(root / s["checkpoint"])))
+                self.segmenter = seg.to(device).eval()
+            self.weight_shapes["segmenter"] = weights.shapes(self.segmenter)
 
     def weight_maps(self, rgb: np.ndarray):
         """(F, H/4, W/4) semantic weights on the device, or None."""

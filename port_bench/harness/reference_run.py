@@ -19,17 +19,20 @@ faults.
 from __future__ import annotations
 
 import contextlib
+import importlib
+from functools import partial
 
 import numpy as np
 import torch
 
-from reference import frontend as ref_frontend
 from reference import segmenter as ref_segmenter
 from reference import system as ref_system
 from reference import tracking as ref_tracking
 from reference import weights as ref_weights
 from reference.camera import PinholeCamera
 from reference.layers import FP8
+
+from . import weights
 
 CHUNK = 8  # frames per block, so that the float32 models fit beside nothing else
 
@@ -44,9 +47,16 @@ def tf32(enabled: bool):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+def frontend_module(config: dict):
+    """The reference module (``reference/<model.reference>.py``, default
+    ``frontend``) whose ``LearnedFrontend`` stands for the port's."""
+    return importlib.import_module(f"reference.{config['model'].get('reference', 'frontend')}")
+
+
 class Reference:
     """The reference of one configuration, its models read from the same
-    committed weight files as the port's."""
+    committed weight files as the port's, or drawn from the same seed
+    (``harness/weights.py``); ``weight_shapes`` as ``Program``'s."""
 
     def __init__(self, config: dict, root, device: torch.device, precision: str = "reference"):
         if precision not in ("reference", "control"):
@@ -57,16 +67,27 @@ class Reference:
         self.cam = PinholeCamera(**config["camera"])
         self.slam_cfg = ref_system.SlamConfig(**config["slam"])
         self.frontend = self.segmenter = None
+        self.weight_shapes = {}
         if config["frontend"] == "learned":
             m = config["model"]
-            model = ref_frontend.LearnedFrontend(**m["sizes"], dtype=dtype)
-            model.load_state_dict(ref_weights.frontend_state_dict(str(root / m["checkpoint"])))
-            self.frontend = model.to(device).eval()
+            make = partial(frontend_module(config).LearnedFrontend, **m["sizes"], dtype=dtype)
+            if "weights" in m:
+                self.frontend = weights.drawn(make, m, device)
+            else:
+                model = make()
+                model.load_state_dict(ref_weights.frontend_state_dict(str(root / m["checkpoint"])))
+                self.frontend = model.to(device).eval()
+            self.weight_shapes["model"] = weights.shapes(self.frontend)
         if config.get("semantics") == "model":
             s = config["segmenter"]
-            seg = ref_segmenter.SemanticSegmenter(**s["sizes"], dtype=dtype)
-            seg.load_state_dict(ref_weights.segmenter_state_dict(str(root / s["checkpoint"])))
-            self.segmenter = seg.to(device).eval()
+            make = partial(ref_segmenter.SemanticSegmenter, **s["sizes"], dtype=dtype)
+            if "weights" in s:
+                self.segmenter = weights.drawn(make, s, device)
+            else:
+                seg = make()
+                seg.load_state_dict(ref_weights.segmenter_state_dict(str(root / s["checkpoint"])))
+                self.segmenter = seg.to(device).eval()
+            self.weight_shapes["segmenter"] = weights.shapes(self.segmenter)
 
     def _blocks(self, *arrays):
         n = len(arrays[0])

@@ -149,7 +149,7 @@ def test_harness_loads_neither_jax_nor_the_jax_package():
 
 
 def test_run_without_a_card_exits_nonzero_and_prints_no_result(tmp_path):
-    out = subprocess.run([sys.executable, str(BENCH / "run.py"), "--workload", "orb.slam", "--seed",
+    out = subprocess.run([sys.executable, str(BENCH / "run.py"), "--workload", "orb.live", "--seed",
                           "2147483701", "--seconds", "1", "--trace", "0"],
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     import torch
@@ -167,7 +167,7 @@ def test_only_the_benchmark_and_its_paths_is_not_enough(tmp_path):
 
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(BENCH, tmp_path / "port_bench", ignore=shutil.ignore_patterns("__pycache__"))
-    out = subprocess.run([sys.executable, "port_bench/run.py", "--workload", "orb.slam", "--seed", "1",
+    out = subprocess.run([sys.executable, "port_bench/run.py", "--workload", "orb.live", "--seed", "1",
                           "--seconds", "1", "--trace", "0"], cwd=tmp_path, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode != 0
