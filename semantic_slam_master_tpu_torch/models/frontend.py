@@ -88,19 +88,22 @@ class OffsetHead(nn.Module):
 class LearnedFrontend(nn.Module):
     """End-to-end learned frontend with the JAX module's defaults
     (ViT-S/16, 500 keypoints, 128-d descriptors). ``dtype`` is the
-    backbone's matmul dtype; the heads run in f32."""
+    backbone's matmul dtype; the heads run in f32. ``mlp_ratio`` and
+    ``block`` go to ``ViTBackbone`` (DINOv3 ViT-7B/16: 2.0, ``"dinov3"``)."""
 
     def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6, patch_size: int = 16,
                  pos_grid: int = 28, selector_hidden: int = 256, refiner_hidden: int = 384,
                  refiner_layers: int = 4, descriptor_dim: int = 128, estimator_hidden: int = 128,
                  num_keypoints: int = 500, nms_radius: int = 2, subpatch_refine: bool = False,
-                 dtype=torch.bfloat16, device=None, generator: torch.Generator | None = None):
+                 mlp_ratio: float = 4.0, block: str = "vit", dtype=torch.bfloat16, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.patch_size, self.num_keypoints, self.nms_radius = patch_size, num_keypoints, nms_radius
         self.subpatch_refine = subpatch_refine
         self.backbone = ViTBackbone(embed_dim=embed_dim, depth=depth, num_heads=num_heads,
-                                    patch_size=patch_size, pos_grid=pos_grid, dtype=dtype, generator=gen)
+                                    patch_size=patch_size, mlp_ratio=mlp_ratio, pos_grid=pos_grid,
+                                    block=block, dtype=dtype, generator=gen)
         self.selector = KeypointSelector(embed_dim, selector_hidden, generator=gen)
         self.refiner = DescriptorRefiner(embed_dim, refiner_hidden, descriptor_dim, refiner_layers, generator=gen)
         self.estimator = UncertaintyEstimator(embed_dim + descriptor_dim, estimator_hidden, generator=gen)
@@ -152,8 +155,10 @@ class LearnedFrontend(nn.Module):
 
     def forward(self, images: torch.Tensor) -> FrontendOutput:
         """(B, H, W, 3) normalised RGB -> FrontendOutput. Recorded as the
-        device spans ``frontend.backbone`` (the ViT) and ``frontend.heads``
-        (selector, top-k, sub-patch refinement, descriptors, confidence)."""
+        device spans ``frontend.backbone`` (the ViT, with its blocks'
+        ``frontend.backbone.attn`` and ``frontend.backbone.ffn`` inside) and
+        ``frontend.heads`` (selector, top-k, sub-patch refinement,
+        descriptors, confidence)."""
         with profiling.span("frontend.backbone", device=images.device):
             feats = self.backbone(images)
         with profiling.span("frontend.heads", device=images.device):

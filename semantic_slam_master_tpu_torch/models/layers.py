@@ -6,7 +6,8 @@ the flax layer it replaces does:
 
 - ``Dense`` / ``Conv`` cast input, weight and bias to the layer's
   ``dtype`` (flax's ``promote_dtype``), then multiply and add the bias
-  as two operations;
+  as two operations; a ``Dense`` adds the bytes of the weight and bias it
+  casts in a call to the recorder's counter ``weight_cast_bytes``;
 - ``LayerNorm`` / ``GroupNorm`` take the mean and E[x^2] - mean^2 in
   f32 (flax's fast variance, clipped at 0), eps 1e-6, and apply
   ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; ``BatchNorm``
@@ -36,6 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import mesh as mesh_lib
+from ..utils import profiling
+
+WEIGHT_CAST_BYTES = "weight_cast_bytes"  # bytes of parameters a Dense casts to its dtype
 
 
 def default_generator(generator: torch.Generator | None) -> torch.Generator:
@@ -67,9 +71,11 @@ def normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: weight (out, in), bias (out,)."""
+    """flax ``nn.Dense``: weight (out, in), bias (out,) unless ``bias`` is
+    False."""
 
-    def __init__(self, n_in: int, n_out: int, gen: torch.Generator, init: str = "lecun", dtype=None):
+    def __init__(self, n_in: int, n_out: int, gen: torch.Generator, init: str = "lecun", dtype=None,
+                 bias: bool = True):
         super().__init__()
         if init == "lecun":
             w = lecun_normal((n_in, n_out), n_in, gen).T
@@ -80,7 +86,10 @@ class Dense(nn.Module):
         else:
             raise ValueError(f"unknown init {init!r}")
         self.weight = nn.Parameter(w.contiguous())
-        self.bias = nn.Parameter(torch.zeros(n_out))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(n_out))
+        else:
+            self.register_parameter("bias", None)
         self.dtype = dtype
         self.tp_role = None  # "column" | "row" on a 'model' axis (parallel/tp.py)
         self.tp_group = None
@@ -90,15 +99,18 @@ class Dense(nn.Module):
         its outputs, a row-parallel one takes this rank's block of its
         inputs; by default both take and return whole tensors."""
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if dt != self.weight.dtype:
+            profiling.count(WEIGHT_CAST_BYTES, sum(p.nbytes for p in (self.weight, self.bias) if p is not None))
         if self.tp_role == "row":
             if not sharded:
                 x = mesh_lib.split(x, self.tp_group, -1)
             y = mesh_lib.reduce_from(torch.matmul(x.to(dt), self.weight.to(dt).T), self.tp_group)
-            return y + self.bias.to(dt)
+            return y if self.bias is None else y + self.bias.to(dt)
         if self.tp_role == "column":
             x = mesh_lib.copy_to(x, self.tp_group)
         y = torch.matmul(x.to(dt), self.weight.to(dt).T)
-        y = y + self.bias.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
         if self.tp_role == "column" and not sharded:
             y = mesh_lib.gather(y, self.tp_group, -1)
         return y

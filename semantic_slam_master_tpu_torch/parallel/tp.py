@@ -129,7 +129,7 @@ def shard_module(model: torch.nn.Module, mesh: mesh_lib.Mesh) -> torch.nn.Module
         spec = spec_for_path(flax_path(prefix + "weight", mod.weight.shape), 2)
         if not spec:
             continue
-        params = {prefix + "weight": mod.weight, prefix + "bias": mod.bias}
+        params = {prefix + k: p for k, p in (("weight", mod.weight), ("bias", mod.bias)) if p is not None}
         with torch.no_grad():
             for k, block in shard_tree({k: p.detach() for k, p in params.items()}, mesh).items():
                 params[k].data = block

@@ -41,6 +41,15 @@ class ModelConfig:
     backbone_heads: int = 6
     backbone_pos_grid: int = 28
     subpatch_refine: bool = False
+    # The port's backbone variants (``models/backbone.py``), beyond the JAX
+    # ModelConfig; the defaults are the JAX model's ViT. ``backbone_block``:
+    # "vit" or "dinov3" (DINOv3's SwiGLU, RoPE, LayerScale, no qkv bias).
+    backbone_mlp_ratio: float = 4.0
+    backbone_block: str = "vit"
+
+
+# ``ModelConfig`` fields that the JAX package's has not.
+PORT_MODEL_FIELDS = ("backbone_mlp_ratio", "backbone_block")
 
 
 @dataclass
@@ -193,6 +202,8 @@ def build_model(m: ModelConfig, dtype=torch.bfloat16, device=None,
         estimator_hidden=m.estimator_hidden,
         num_keypoints=m.num_keypoints,
         subpatch_refine=m.subpatch_refine,
+        mlp_ratio=m.backbone_mlp_ratio,
+        block=m.backbone_block,
         dtype=dtype,
         device=device,
         generator=generator,

@@ -63,6 +63,16 @@ BF16_GAP = 0.1
 MESH_CLI_GAP = 1e-4
 
 
+def _jax_fields(d: dict) -> dict:
+    """A port ``to_dict`` without the port's own backbone fields, which the
+    JAX config has not; they must be at their defaults (the JAX ViT)."""
+    model = dict(d["model"])
+    defaults = tconfig.ModelConfig()
+    for k in tconfig.PORT_MODEL_FIELDS:
+        assert model.pop(k) == getattr(defaults, k), k
+    return dict(d, model=model)
+
+
 def _write_config(path, overrides):
     path.write_text(yaml.safe_dump(tconfig.to_dict(tconfig.load_config(TINY, overrides))))
     return path
@@ -78,11 +88,11 @@ def test_config_round_trip_and_mesh_refusal(tmp_path):
     import torch.distributed as dist
 
     cfg = _write_config(tmp_path / "c.yaml", SMALL)
-    assert jconfig.to_dict(jconfig.load_config(cfg)) == tconfig.to_dict(tconfig.load_config(cfg))
+    assert jconfig.to_dict(jconfig.load_config(cfg)) == _jax_fields(tconfig.to_dict(tconfig.load_config(cfg)))
     mesh = {"training": {"mesh_data": 2, "mesh_model": 2}}
     tcfg = tconfig.load_config(TINY, mesh)
     assert (tcfg.training.mesh_data, tcfg.training.mesh_model) == (2, 2)
-    assert tconfig.to_dict(tcfg) == jconfig.to_dict(jconfig.load_config(TINY, mesh))
+    assert _jax_fields(tconfig.to_dict(tcfg)) == jconfig.to_dict(jconfig.load_config(TINY, mesh))
     with pytest.raises(ValueError, match="no process group"):
         ttrainer.fit(tcfg, lambda epoch: iter(()), device="cpu")
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1,
