@@ -39,8 +39,8 @@ device synchronised at the end of each):
 8. ORB main path -- ``run-slam --synthetic`` at 640x480 with the defaults
    (512 keypoints, 2048 landmarks, window 5, 4 BA iterations, 16-frame
    frontend chunks), then ``evaluate``; ATE finite and below 0.05 m, both
-   ORB kernels launched 4x per frontend chunk, pnp_refine once per tracked
-   frame (59), its inputs recorded for phase 33.
+   ORB kernels launched 4x per frontend chunk, pnp_refine and ransac once
+   per tracked frame (59), their inputs recorded for phases 33 and 34.
 9. learned frontend + segmenter -- the ViT-S/16 frontend of
    configs/train_vits_synthetic_long.yaml (its offset head's last conv
    given seeded non-zero weights, so sub-patch offsets are not all 0) and
@@ -61,8 +61,9 @@ device synchronised at the end of each):
    weights/segmenter.npz`` (the trained ViT-S/16 at full width with
    sub-patch refinement and the trained segmenter, 8-frame chunks), 60
    frames, then ``evaluate``: finite poses, ATE below VITS_ATE_BOUND_M,
-   gather_patches launched at least once per chunk, pnp_refine once per
-   tracked frame (59), its inputs recorded for phase 33; fps and the time
+   gather_patches launched at least once per chunk, pnp_refine and ransac
+   once per tracked frame (59), their inputs recorded for phases 33 and 34;
+   fps and the time
    split (segmenter, backbone, heads, SLAM loop) of the trained pair
    printed.
 11. dynamic path -- ``run-slam --synthetic --dynamic --seed 1`` (ORB
@@ -208,6 +209,16 @@ device synchronised at the end of each):
    timed on the ORB path's middle frame (median_ms, as above) beside the
    plain version on the host clock, synchronised, and the bound (bytes
    over 3.35 TB/s; the kernel is latency-bound).
+
+34. ransac vs plain -- after phase 33, on every tracked frame's inputs
+   recorded in phases 8 (ORB, N=512) and 10 (learned, N=500): every
+   output of the kernel (the fits, supports, counts, best, its mask and
+   weights) equal to its plain version's bits; printed beside them, per
+   path, the frames whose largest support ties. Then the kernel alone (the
+   draw's cumsum taken before) timed on each path's middle frame
+   (median_ms, as above), the whole span beside it, the plain version on
+   the host clock, synchronised, and the bound (the operations at the f32
+   issue rate; the kernel is latency-bound).
 
 Every path that runs a kernel resets the launch counters just before it
 and reads them just after; the kernels line sums them (``launches``)
@@ -802,6 +813,89 @@ def refine_inputs(torch):
         pnp.pnp_refine = kref
 
 
+@contextlib.contextmanager
+def ransac_inputs(torch):
+    """Record what ``pnp.ransac_pose`` hands ``ransac`` (copies of its
+    arguments) on every call inside the block; the kernel still runs, and
+    its launch count is untouched."""
+    from semantic_slam_master_tpu_torch.ops.kernels import ransac as kransac
+    from semantic_slam_master_tpu_torch.slam import pnp
+
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args], kw))
+        return kransac.ransac(*args, **kw)
+
+    pnp.ransac = types.SimpleNamespace(ransac=recording)  # stands for the module there
+    try:
+        yield calls
+    finally:
+        pnp.ransac = kransac
+
+
+def ransac_cost(args) -> tuple:
+    """(bytes, f32 operations) the kernel needs once: u, the cumulative
+    probabilities, points, points_dst, observations, valid, w_sem and
+    weights read; Ts, T_best, inls, supports, best, mask and w written; ~2,000
+    operations a fit and ~40 a reprojection (H x N of them, and N for the
+    best's mask)."""
+    u, points = args[0], args[1]
+    H, N = u.shape[0], points.shape[0]
+    nbytes = H * 12 + N * (4 + 12 + 12 + 8 + 1 + 4 + 4) + H * (64 + 8 + 4) + 64 + 8 + N * (1 + 4)
+    return nbytes, 2000.0 * H + 40.0 * (H + 1) * N
+
+
+def check_ransac(torch, paths: dict) -> dict:
+    """Phase 34 (the module docstring): the RANSAC kernel against its plain
+    version on what each path's ``ransac_pose`` handed it, to the bit; timed
+    on the ORB path's middle frame for the kernels line."""
+    from semantic_slam_master_tpu_torch.ops.kernels import ransac as kransac
+
+    for path, calls in paths.items():
+        differ, ties = [], 0
+        for f, (args, kw) in enumerate(calls):
+            got = kransac.ransac(*args, **kw)
+            ref = kransac.ransac_plain(*args, **kw)
+            outs = [name for name, a, b in zip(kransac.Hypotheses._fields, got, ref) if not torch.equal(a, b)]
+            if outs:
+                differ.append((f, *outs))
+            ties += int((ref.supports == ref.supports.max()).sum()) > 1
+        sizes = sorted({args[1].shape[0] for args, _ in calls})
+        log(f"  {path}: {len(calls)} calls, N={sizes}: the kernel's outputs not the plain bits on {len(differ)} "
+            f"{differ}; the largest support tied on {ties} (the first index taken)")
+        if differ:
+            raise AssertionError(f"ransac differs from its plain version on the {path} path's frames {differ}")
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    report = {"max_abs_err": 0.0}
+    for path, calls in paths.items():
+        args, kw = calls[len(calls) // 2]
+        u, points, points_dst, obs, cam, valid, weights, threshold = args
+        w_sem, probs = kransac._sampling_weights(valid, weights, points.dtype)
+        p_cuml = torch.cumsum(probs, dim=0)
+        launch = (u, p_cuml, w_sem, points, points_dst, obs, cam, valid, weights, threshold)
+        ms = median_ms(lambda: kransac._launch(*launch), TIMED_ITERS, WARMUP_ITERS, flush)
+        span_ms = median_ms(lambda: kransac.ransac(*args, **kw), TIMED_ITERS, WARMUP_ITERS, flush)
+        plain = []
+        for a, k in calls[:PLAIN_FRAMES]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kransac.ransac_plain(*a, **k)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t0) * 1e3)
+        plain_ms = sorted(plain)[len(plain) // 2]
+        nbytes, ops = ransac_cost(args)
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"  ransac on the {path} path's middle frame, H={u.shape[0]} N={points.shape[0]}: ms={ms:.4f} (the "
+            f"kernel) span_ms={span_ms:.4f} (with the draw's weights and cumsum) plain_ms={plain_ms:.4f} (host "
+            f"clock, synchronised; median of {len(plain)} frames) bound_ms={b_ms:.6f} ({b_by}: bytes {nbytes}, "
+            f"ops {ops:.0f}; latency-bound: draws, fits, scores, argmax and mask one after another)")
+        if path == "orb":
+            report.update(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
+    return report
+
+
 def refine_bytes(args) -> int:
     """What the kernel must read and write once: points, observations, w,
     w_sem, valid and mask (N each), T_best, supports, inls and best; the
@@ -1289,7 +1383,8 @@ def read_jsonl(path: str) -> list:
 def train_phase_launches(counts: dict, steps: int, name: str) -> None:
     """gather_patches launches twice per train or eval step (one refine_at
     per frame of the pair) and nothing else launches in training."""
-    want = {"fast_score": 0, "gather_aligned_patches": 0, "gather_patches": 2 * steps, "pnp_refine": 0}
+    want = {"fast_score": 0, "gather_aligned_patches": 0, "gather_patches": 2 * steps, "pnp_refine": 0,
+            "ransac": 0}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
 
@@ -1724,14 +1819,16 @@ def sync(torch, device: str) -> None:
 
 
 def kernel_counts() -> tuple:
-    """(reset, read) of the four kernel wrappers' launch counts."""
+    """(reset, read) of the five kernel wrappers' launch counts."""
     from semantic_slam_master_tpu_torch.ops.kernels import fast_score as kfast
     from semantic_slam_master_tpu_torch.ops.kernels import gather_patches as kgather
     from semantic_slam_master_tpu_torch.ops.kernels import patches as kpatch
     from semantic_slam_master_tpu_torch.ops.kernels import pnp_refine as kref
+    from semantic_slam_master_tpu_torch.ops.kernels import ransac as kransac
 
     counters = {"fast_score": kfast.fast_score, "gather_aligned_patches": kpatch.gather_aligned_patches,
-                "gather_patches": kgather.gather_patches, "pnp_refine": kref.pnp_refine}
+                "gather_patches": kgather.gather_patches, "pnp_refine": kref.pnp_refine,
+                "ransac": kransac.ransac}
 
     def reset_counts():
         for c in (*counters.values(), kgather.gather_patches_padded):
@@ -1767,7 +1864,8 @@ def fleet_phase(torch, frames, record, reset_counts, read_counts, card, device: 
     fleet_s = time.perf_counter() - t0
     counts = read_counts()
     chunks = -(-len(gray) // run_slam_cli.FRONTEND_CHUNK)
-    record("fleet", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks, "pnp_refine": S * (F - 1)})
+    record("fleet", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks, "pnp_refine": S * (F - 1),
+                             "ransac": S * (F - 1)})
     if out.poses_wc.shape != (S, F, 4, 4) or not bool(torch.isfinite(out.poses_wc).all()):
         raise AssertionError(f"fleet poses {tuple(out.poses_wc.shape)}, finite {bool(torch.isfinite(out.poses_wc).all())}")
     runs = []
@@ -2062,7 +2160,7 @@ def main() -> int:
     with phase("ORB main path: run-slam --synthetic + evaluate"), \
             tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         reset_counts()
-        with refine_inputs(torch) as refine_orb:
+        with refine_inputs(torch) as refine_orb, ransac_inputs(torch) as ransac_orb:
             run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp,
                                     ["--synthetic", "--synthetic-frames", str(MAIN_FRAMES)])
         counts = read_counts()
@@ -2074,10 +2172,18 @@ def main() -> int:
         if not (ate == ate and ate < 0.05):
             raise AssertionError(f"ATE {ate} is not finite and below 0.05 m")
         record("orb", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
-                               "pnp_refine": MAIN_FRAMES - 1})
-        if counts["pnp_refine"] != MAIN_FRAMES - 1:
-            raise AssertionError(f"pnp_refine launched {counts['pnp_refine']} times on the ORB path, expected one a "
-                                 f"tracked frame ({MAIN_FRAMES - 1})")
+                               "pnp_refine": MAIN_FRAMES - 1, "ransac": MAIN_FRAMES - 1})
+        for name in ("pnp_refine", "ransac"):
+            if counts[name] != MAIN_FRAMES - 1:
+                raise AssertionError(f"{name} launched {counts[name]} times on the ORB path, expected one a "
+                                     f"tracked frame ({MAIN_FRAMES - 1})")
+        counters = run["trace"]["counters"]
+        log(f"  the run's trace: ransac_kernels={counters.get('ransac_kernels')} "
+            f"refine_kernels={counters.get('refine_kernels')} host_syncs={counters.get('host_syncs')} "
+            f"slam.ransac host_ms a frame={run['trace']['spans']['slam.ransac']['host_ms']:.4f}")
+        if counters.get("ransac_kernels") != MAIN_FRAMES - 1:
+            raise AssertionError(f"the ORB path's trace counts {counters.get('ransac_kernels')} ransac_kernels, "
+                                 f"expected one a tracked frame ({MAIN_FRAMES - 1})")
 
     with phase("learned frontend + segmenter card vs cpu"):
         check_learned(torch, synthetic, run_slam_cli.render_all, tracking, config_mod, seg_mod,
@@ -2087,7 +2193,7 @@ def main() -> int:
                "model --segmenter-checkpoint weights/segmenter.npz + evaluate"), \
             tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         reset_counts()
-        with refine_inputs(torch) as refine_learned:
+        with refine_inputs(torch) as refine_learned, ransac_inputs(torch) as ransac_learned:
             run, res = run_cli_path(torch, run_slam_cli, evaluate_cli, tmp, [
                 "--synthetic", "--synthetic-frames", str(MAIN_FRAMES), "--frontend", "learned",
                 "--train-config", VITS_CONFIG, "--checkpoint", VITS_WEIGHTS, "--semantics", "model",
@@ -2104,10 +2210,12 @@ def main() -> int:
         if not (run["finite_poses"] and ate == ate and ate < VITS_ATE_BOUND_M):
             raise AssertionError(f"trained ViT-S/16 learned path: ATE {ate} m is not finite and below "
                                  f"{VITS_ATE_BOUND_M} m")
-        record("learned_vits", counts, {"gather_patches": chunks, "pnp_refine": MAIN_FRAMES - 1})
-        if counts["pnp_refine"] != MAIN_FRAMES - 1:
-            raise AssertionError(f"pnp_refine launched {counts['pnp_refine']} times on the learned path, expected "
-                                 f"one a tracked frame ({MAIN_FRAMES - 1})")
+        record("learned_vits", counts,
+               {"gather_patches": chunks, "pnp_refine": MAIN_FRAMES - 1, "ransac": MAIN_FRAMES - 1})
+        for name in ("pnp_refine", "ransac"):
+            if counts[name] != MAIN_FRAMES - 1:
+                raise AssertionError(f"{name} launched {counts[name]} times on the learned path, expected one a "
+                                     f"tracked frame ({MAIN_FRAMES - 1})")
         split = learned_split(torch, synthetic, run_slam_cli.render_all, tracking, run_slam_cli,
                               select_keypoints)
         log("  learned path, device ms per 8-frame chunk (warm): "
@@ -2117,6 +2225,10 @@ def main() -> int:
     with phase("33. pnp_refine vs plain on what the ORB and learned paths' ransac_pose handed it"):
         refine = check_refine(torch, {"orb": refine_orb, "learned_vits": refine_learned})
     del refine_orb, refine_learned
+
+    with phase("34. ransac vs plain on what the ORB and learned paths' ransac_pose handed it"):
+        ransac = check_ransac(torch, {"orb": ransac_orb, "learned_vits": ransac_learned})
+    del ransac_orb, ransac_learned
 
     with phase(f"dynamic path: run-slam --dynamic --seed {DYNAMIC_SEED}, --semantics gt and off, + evaluate"):
         ates = {}
@@ -2132,7 +2244,8 @@ def main() -> int:
             log(f"  --semantics {semantics}: frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} "
                 f"fps={run['fps']} ate_rmse_m={ate:.5f} keyframes={run['keyframes']} launches={counts}")
             record(f"dynamic_{semantics}", counts,
-                   {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks, "pnp_refine": MAIN_FRAMES - 1})
+                   {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks, "pnp_refine": MAIN_FRAMES - 1,
+                    "ransac": MAIN_FRAMES - 1})
         log(f"  dynamic ATE seed {DYNAMIC_SEED}: gt {ates['gt']:.5f} m (bound < {DYNAMIC_ATE_BOUND_M}), "
             f"off {ates['off']:.5f} m (bound > {DYNAMIC_OFF_ATE_FLOOR_M})")
         if not (ates["gt"] == ates["gt"] and ates["gt"] < DYNAMIC_ATE_BOUND_M):
@@ -2159,7 +2272,8 @@ def main() -> int:
         if not (run["finite_poses"] and ate == ate and ate < TINY_ATE_BOUND_M):
             raise AssertionError(f"trained tiny learned path: ATE {ate} m is not finite and below "
                                  f"{TINY_ATE_BOUND_M} m")
-        record("learned_tiny", counts, {"gather_patches": chunks, "pnp_refine": MAIN_FRAMES - 1})
+        record("learned_tiny", counts,
+               {"gather_patches": chunks, "pnp_refine": MAIN_FRAMES - 1, "ransac": MAIN_FRAMES - 1})
 
     with phase(f"trained segmenter: run-slam --dynamic --seed {DYNAMIC_SEED} --semantics model "
                "--segmenter-checkpoint + evaluate"), \
@@ -2172,7 +2286,7 @@ def main() -> int:
         ate = res["ate"]["rmse"]
         chunks = -(-MAIN_FRAMES // run_slam_cli.FRONTEND_CHUNK)
         record("dynamic_model", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
-                                         "pnp_refine": MAIN_FRAMES - 1})
+                                         "pnp_refine": MAIN_FRAMES - 1, "ransac": MAIN_FRAMES - 1})
         recall, accuracy = segmenter_fidelity(torch, synthetic, run_slam_cli.render_all, seg_mod,
                                               run_slam_cli)
         log(f"  frames={MAIN_FRAMES} run_slam_wall_s={run['wall_s']:.2f} fps={run['fps']} "
@@ -2191,7 +2305,7 @@ def main() -> int:
                          read_counts)
         chunks = -(-LOOP_FRAMES // run_slam_cli.FRONTEND_CHUNK)
         record("loop", loop["counts"], {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
-                                        "pnp_refine": 2 * (LOOP_FRAMES - 1)})
+                                        "pnp_refine": 2 * (LOOP_FRAMES - 1), "ransac": 2 * (LOOP_FRAMES - 1)})
         for name, r in loop["runs"].items():
             t = r["timings"]
             slam_s = [c["slam_s"] for c in t]
@@ -2234,7 +2348,7 @@ def main() -> int:
                 raise AssertionError(f"--loop-closure {mode}: ATE {ate} m is not finite and below "
                                      f"{CLI_LOOP_ATE_BOUND_M} m")
             record(f"cli_{mode}", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
-                                           "pnp_refine": MAIN_FRAMES - 1})
+                                           "pnp_refine": MAIN_FRAMES - 1, "ransac": MAIN_FRAMES - 1})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tum_") as tum_root:
         with phase("TUM input: write, decode (native and plain), pinned frame_chunks to the card"):
@@ -2261,7 +2375,7 @@ def main() -> int:
                     raise AssertionError(f"{name} launched {counts[name]} times on the TUM path, expected "
                                          f"{4 * chunks}")
             record("tum", counts, {"fast_score": 4 * chunks, "gather_aligned_patches": 4 * chunks,
-                                   "pnp_refine": MAIN_FRAMES - 1})
+                                   "pnp_refine": MAIN_FRAMES - 1, "ransac": MAIN_FRAMES - 1})
 
         with phase("acceptance suite: run-tests --frontend orb-pyramid (TUM) and learned (--synthetic)"), \
                 tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2320,6 +2434,12 @@ def main() -> int:
          "one call on the ORB path's middle tracked frame (N=512, as ransac_pose handed it); plain_ms on the "
          "host clock, synchronised (the plain version reads the device 12 times); bound: the bytes read and "
          "written once, the kernel is latency-bound (10 dependent Gauss-Newton steps)"),
+        ("ransac", "semantic_slam_master_tpu_torch/csrc/ransac.cu",
+         "none: the slam.ransac span of semantic_slam_master_tpu_torch/slam/pnp.py::ransac_pose", ransac,
+         "the kernel alone on the ORB path's middle tracked frame (H=64, N=512, as ransac_pose handed it, the "
+         "draw's cumsum taken before); plain_ms on the host clock, synchronised (the plain version reads the "
+         "device twice); bound: the operations (~2,000 a fit, ~40 a reprojection) at the f32 issue rate, the "
+         "kernel is latency-bound"),
     ):
         b_ms, b_by = bound(r["bytes"], r["ops"])
         kernels.append({

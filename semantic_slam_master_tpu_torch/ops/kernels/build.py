@@ -35,6 +35,7 @@ SIGNATURES = {
     "semslam_aligned_patches": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "semslam_gather_patches": [_vp, _vp, _vp, *[_int] * 10, _vp],
     "semslam_pnp_refine": [*[_vp] * 15, _int, _int, *[ctypes.c_float] * 7, _vp],
+    "semslam_ransac": [*[_vp] * 15, _int, _int, *[ctypes.c_float] * 5, _vp],
 }
 
 

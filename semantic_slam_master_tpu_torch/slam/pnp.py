@@ -14,7 +14,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import PinholeCamera, project
-from ..ops.kernels import pnp_refine
+from ..ops.kernels import pnp_refine, ransac
 from ..utils import profiling
 
 _mm = lie.mm_small
@@ -204,30 +204,17 @@ def ransac_pose(
     scored by semantically weighted inlier support on ``observations``;
     the best is refined with Gauss-Newton and kept only if support does
     not drop. Recorded as the spans ``slam.ransac`` (draws, fits, scoring,
-    the best hypothesis's mask; indexing with the 0-dim ``best`` reads it on
-    the host, a ``sync``) and ``slam.refine`` (the polish, rescoring,
+    the best hypothesis's mask: ``ops/kernels/ransac.py``, one kernel launch
+    after the draw's weights and cumulative sum on the card; on the CPU the
+    plain version, whose indexing with the 0-dim ``best`` reads it on the
+    host, a ``sync``) and ``slam.refine`` (the polish, rescoring,
     refine-or-keep, rmse: ``ops/kernels/pnp_refine.py``, one kernel launch
     on the card, the plain version on the CPU).
     """
     with profiling.span("slam.ransac"):
-        w_sem = valid.to(points.dtype) if weights is None else valid.to(points.dtype) * weights
-        probs = w_sem + 1e-6
-        probs = probs / probs.sum()
-        idx = sample_indices(probs, u)  # (H, 3)
-
-        Ts = kabsch(points[idx], points_dst[idx])  # (H, 4, 4)
-        inls, masks = count_inliers(Ts, points, observations, cam, valid, inlier_threshold)
-        supports = torch.sum(masks * w_sem, dim=-1)
-        best = torch.argmax(supports)
-        with profiling.sync("ransac.best_pose"):
-            T_best = Ts[best]
-
-        _, mask = count_inliers(T_best, points, observations, cam, valid, inlier_threshold)
-        w = mask.to(points.dtype)
-        if weights is not None:
-            w = w * weights
+        hyp = ransac.ransac(u, points, points_dst, observations, cam, valid, weights, inlier_threshold)
     with profiling.span("slam.refine"):
         pose, num_inliers, inlier_mask, rmse = pnp_refine.pnp_refine(
-            T_best, points, observations, cam, w, w_sem, valid, mask, supports, inls, best,
-            threshold=inlier_threshold, num_iters=refine_iters)
+            hyp.T_best, points, observations, cam, hyp.w, hyp.w_sem, valid, hyp.mask, hyp.supports, hyp.inls,
+            hyp.best, threshold=inlier_threshold, num_iters=refine_iters)
     return PnPResult(pose=pose, num_inliers=num_inliers, inlier_mask=inlier_mask, rmse=rmse)
